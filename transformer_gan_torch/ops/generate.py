@@ -1,0 +1,214 @@
+"""Fused chunk sampling for generation on Hopper (``csrc/generate.cu``).
+
+``fused_generate_chunk`` replaces ``pallas_generate.fused_generate_chunk``:
+``n`` tokens sampled in one call, each one embed -> all layers against the
+big K/V cache plus the staged ring -> logits -> surgery -> softmax -> top-k
+-> floor -> gumbel argmax -> feedback. Operands and returns follow the JAX
+contract, except that the big K/V cache comes in, and the chunk's staged
+K/V rows go out, in the XL memory's h-major layout (``XLMems.hids``), so the
+chunk loop converts no layout. On a CUDA tensor it launches the kernel
+chain or raises; on a CPU tensor it runs :func:`fused_generate_chunk_plain`,
+which is also what the card checks the kernel against.
+
+The gumbel noise ``g [n, B, V]`` is an input: the caller draws it (from an
+explicit ``torch.Generator``), so both versions, and the JAX package, can
+be fed the same numbers.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _native
+from ..models.attention import layer_norm
+
+MAX_CHUNK = 32
+MAX_LANES = 32
+TECHNIQUES = {"topk": 0, "random": 1, "gumbel": 2}
+
+
+def supports_fused_generate(cfg, scfg, bsz: int, C: int) -> bool:
+    """Sampling techniques the kernel implements (nucleus keeps the plain
+    chunked path, as in the JAX package), lane and chunk bounds."""
+    return (cfg.cache_kv
+            and scfg.technique in TECHNIQUES
+            and 1 <= bsz <= MAX_LANES
+            and 1 <= C <= MAX_CHUNK
+            and not cfg.append_note_status)
+
+
+class GenArgs(ctypes.Structure):
+    """Mirror of ``struct GenArgs`` in csrc/generate.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_int) for k in (
+            "dtype", "n", "L", "B", "M", "HD", "DI", "H", "V", "pre_lnorm",
+            "same_length", "technique", "topk", "exclude_bos", "num_empty",
+            "empty_token", "count")]
+        + [("scale", ctypes.c_float), ("temperature", ctypes.c_float)]
+        + [(k, ctypes.c_void_p) for k in (
+            "kv", "R", "q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2",
+            "fb2", "ln_as", "ln_ab", "ln_fs", "ln_fb", "rwb", "rrb", "emb",
+            "emb_t", "crit_bias", "g", "ids", "er", "tokens", "staged",
+            "logits_out", "x", "w_in", "q", "ctx", "attn", "out", "hid", "ff",
+            "logits")])
+
+
+_STACKED = {"q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2", "fb2", "rwb",
+            "rrb", "emb_scaled", "emb_t", "crit_bias"}
+_STACKED_F32 = {"ln_as", "ln_ab", "ln_fs", "ln_fb"}
+
+
+def fused_generate_chunk(stacked, cfg, scfg, kv, R, ids, er, g, count,
+                         n: int, same_length: bool = True,
+                         return_logits: bool = False):
+    """Sample ``n`` tokens.
+
+    kv: [L, 2, H, B, M, dh] big K/V cache in the XL memory's h-major layout
+    (``XLMems.hids``; compute type); R: [L, M+1, HD] positional projections
+    (row r = distance M - r); ids, er: [B, 1] int32 first token and
+    empty-run counters; g: [n, B, V] fp32 gumbel noise; count: valid cache
+    slots. Returns (ids' [B, 1], er' [B, 1], tokens [n, B], staged
+    [L, 2, H, B, n, dh], the chunk's K/V rows), plus the logits [n, B, V] of
+    each step when ``return_logits``.
+    """
+    if not kv.is_cuda:
+        return fused_generate_chunk_plain(stacked, cfg, scfg, kv, R, ids, er,
+                                          g, count, n, same_length,
+                                          return_logits)
+    L, _, H, B, M, dh = kv.shape
+    HD = H * dh
+    V = g.shape[2]
+    dev, cd = kv.device, kv.dtype
+    if not supports_fused_generate(cfg, scfg, B, n):
+        raise ValueError(f"fused_generate_chunk: unsupported (technique "
+                         f"{scfg.technique!r}, B {B}, n {n})")
+    if (kv.shape[1] != 2 or R.shape != (L, M + 1, HD)
+            or g.shape != (n, B, V) or H != cfg.n_head or dh != cfg.d_head
+            or V != cfg.n_token or L != cfg.n_layer):
+        raise ValueError("fused_generate_chunk: inconsistent shapes")
+    tensors = {"kv": kv, "R": R}
+    tensors.update({k: stacked[k] for k in _STACKED})
+    for name, t in tensors.items():
+        if t.device != dev or t.dtype != cd or not t.is_contiguous():
+            raise ValueError(f"fused_generate_chunk: {name} must be a "
+                             f"contiguous {cd} tensor on {dev}")
+    for name in _STACKED_F32:
+        t = stacked[name]
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"fused_generate_chunk: {name} must be a "
+                             f"contiguous float32 tensor on {dev}")
+    g = g.to(device=dev, dtype=torch.float32).contiguous()
+    ids_io = ids.reshape(B).to(device=dev, dtype=torch.int32).clone()
+    er_io = er.reshape(B).to(device=dev, dtype=torch.int32).clone()
+    tokens = torch.empty((n, B), dtype=torch.int32, device=dev)
+    staged = torch.zeros((L, 2, H, B, n, dh), dtype=cd, device=dev)
+    logits_out = (torch.empty((n, B, V), dtype=cd, device=dev)
+                  if return_logits else None)
+
+    def scratch(width):
+        return torch.empty((B, width), dtype=cd, device=dev)
+
+    bufs = {"x": scratch(HD), "w_in": scratch(HD), "q": scratch(HD),
+            "ctx": scratch(HD), "attn": scratch(HD), "out": scratch(HD),
+            "hid": scratch(cfg.d_inner), "ff": scratch(HD),
+            "logits": scratch(V)}
+    p = _native.ptr
+    args = GenArgs(
+        dtype=_native.dtype_code(cd), n=n, L=L, B=B, M=M, HD=HD,
+        DI=cfg.d_inner, H=cfg.n_head, V=V, pre_lnorm=int(cfg.pre_lnorm),
+        same_length=int(same_length), technique=TECHNIQUES[scfg.technique],
+        topk=int(scfg.topk), exclude_bos=int(scfg.exclude_bos),
+        num_empty=int(scfg.num_empty_to_ignore),
+        empty_token=int(scfg.empty_token), count=int(count),
+        scale=1.0 / (cfg.d_head ** 0.5), temperature=float(scfg.temperature),
+        kv=p(kv), R=p(R), q_w=p(stacked["q_w"]),
+        k_w=p(stacked["k_w"]), v_w=p(stacked["v_w"]), o_w=p(stacked["o_w"]),
+        ff1=p(stacked["ff1"]), fb1=p(stacked["fb1"]), ff2=p(stacked["ff2"]),
+        fb2=p(stacked["fb2"]), ln_as=p(stacked["ln_as"]),
+        ln_ab=p(stacked["ln_ab"]), ln_fs=p(stacked["ln_fs"]),
+        ln_fb=p(stacked["ln_fb"]), rwb=p(stacked["rwb"]),
+        rrb=p(stacked["rrb"]), emb=p(stacked["emb_scaled"]),
+        emb_t=p(stacked["emb_t"]), crit_bias=p(stacked["crit_bias"]),
+        g=p(g), ids=p(ids_io), er=p(er_io), tokens=p(tokens),
+        staged=p(staged), logits_out=p(logits_out),
+        **{k: p(v) for k, v in bufs.items()})
+    lib = _native.lib()
+    if ctypes.sizeof(GenArgs) != lib.tg_sizeof_gen_args():
+        raise RuntimeError("GenArgs layout differs from csrc/generate.cu")
+    rc = lib.tg_generate_chunk(ctypes.byref(args), _native.stream_ptr(dev))
+    _native.check(rc, "generate_chunk")
+    _native.count_launch("generate_chunk")
+    out = (ids_io.view(B, 1), er_io.view(B, 1), tokens, staged)
+    return out + (logits_out,) if return_logits else out
+
+
+@torch.no_grad()
+def fused_generate_chunk_plain(stacked, cfg, scfg, kv, R, ids, er, g,
+                               count, n: int, same_length: bool = True,
+                               return_logits: bool = False):
+    """Plain PyTorch version of :func:`fused_generate_chunk` on the same
+    operands, rounding where the kernel rounds."""
+    from ..infer.sample import _filter_and_sample
+
+    L, _, H, B, M, dh = kv.shape
+    HD = H * dh
+    cd, dev = kv.dtype, kv.device
+    scale = 1.0 / (dh ** 0.5)
+    sl = 1 if same_length else 0
+    ids = ids.reshape(B).long()
+    er = er.reshape(B).to(torch.int32)
+    staged = torch.zeros((L, 2, H, B, n, dh), dtype=cd, device=dev)
+    toks, logits_all = [], []
+    for t in range(n):
+        jlo = min(M, max(M - int(count), t + sl))
+        # unmasked keys: big slots jlo..M-1, staged slots 0..t; R rows by
+        # distance (big slot j -> row j - t, staged slot s -> row M - t + s)
+        rows = torch.cat([torch.arange(jlo, M, device=dev) - t,
+                          M - t + torch.arange(t + 1, device=dev)])
+        nk = rows.numel()
+        x = stacked["emb_scaled"][ids]                           # [B, HD]
+        for l in range(L):
+            if cfg.pre_lnorm:
+                w_in = layer_norm(x, stacked["ln_as"][l], stacked["ln_ab"][l])
+            else:
+                w_in = x
+            q = w_in @ stacked["q_w"][l]
+            for i, w in enumerate((stacked["k_w"][l], stacked["v_w"][l])):
+                staged[l, i, :, :, t] = (w_in @ w).view(B, H, dh).transpose(0, 1)
+            qw = (q + stacked["rwb"]).view(B, H, dh)
+            qr = (q + stacked["rrb"]).view(B, H, dh)
+            # [H, B, nk, dh]
+            keys, vals = (torch.cat([kv[l, i, :, :, jlo:],
+                                     staged[l, i, :, :, :t + 1]], dim=2)
+                          for i in (0, 1))
+            ac = torch.einsum("hbkd,bhd->bhk", keys, qw)
+            bd = torch.einsum("khd,bhd->bhk", R[l][rows].view(nk, H, dh), qr)
+            prob = torch.softmax((ac + bd).float() * scale, dim=-1).to(cd)
+            ctx = torch.einsum("bhk,hbkd->bhd", prob, vals).reshape(B, HD)
+            attn = ctx @ stacked["o_w"][l]
+            if cfg.pre_lnorm:
+                out = x + attn
+                ff_in = layer_norm(out, stacked["ln_fs"][l],
+                                   stacked["ln_fb"][l])
+            else:
+                out = layer_norm(x + attn, stacked["ln_as"][l],
+                                 stacked["ln_ab"][l])
+                ff_in = out
+            hid = torch.relu(ff_in @ stacked["ff1"][l] + stacked["fb1"][l])
+            ff = hid @ stacked["ff2"][l] + stacked["fb2"][l]
+            if cfg.pre_lnorm:
+                x = out + ff
+            else:
+                x = layer_norm(out + ff, stacked["ln_fs"][l],
+                               stacked["ln_fb"][l])
+        logits = x @ stacked["emb_t"] + stacked["crit_bias"]     # [B, V]
+        tok = _filter_and_sample(logits, scfg, er, g[t].to(dev))
+        er = torch.where(tok == scfg.empty_token, er + 1, 0).to(torch.int32)
+        ids = tok.long()
+        toks.append(tok.to(torch.int32))
+        logits_all.append(logits)
+    out = (ids.to(torch.int32).view(B, 1), er.view(B, 1), torch.stack(toks),
+           staged)
+    return out + (torch.stack(logits_all),) if return_logits else out
