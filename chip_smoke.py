@@ -8,16 +8,25 @@ Phases, one line each; any failure exits non-zero:
 1. device: the card's name and power limit;
 2. build: the CUDA kernels compiled from transformer_gan_torch/csrc;
 3. kernels: each kernel against its plain PyTorch version at the baseline
-   model's full width (L 6, H 10, d 500, DI 1000, V 310, M 4146);
-4. main path: ``transformer_gan_torch.cli.generate.main`` on seeded
-   full-width bf16 parameters, unconditional (8 lanes) and conditional with
-   the debug incremental == batch memory check, with launch counters
-   showing both kernels of the path ran; then the kernel path against the
-   CPU plain path on a short full-width fp32 slice (identical ids);
-5. numbers: us/token and events/s for the kernel and the plain path, and
+   model's full width (L 6, H 10, d 500, DI 1000, V 310): the attention
+   forwards at M 4146, the attention backwards (K1b, K2b) and the forwards
+   with dropout at q 128, M 0 and 1024, B 1, 8 and the training batch 128,
+   and the fused sampler;
+4. main path, generation: ``transformer_gan_torch.cli.generate.main`` on
+   seeded full-width bf16 parameters, unconditional (8 lanes) and
+   conditional with the debug incremental == batch memory check, with
+   launch counters showing both kernels of the path ran; then the kernel
+   path against the CPU plain path on a short full-width fp32 slice;
+5. main path, training: ``transformer_gan_torch.cli.train`` on
+   experiment_baseline.yml (batch 128) over a seeded random corpus for 8
+   steps with an eval and checkpoints (K1f, K1b), a 2-step run at
+   TRAIN.mem_length 0 with random_crop (K2f, K2b), the generation CLI on
+   the trained run directory, and two fp32 full-width training steps of the
+   kernel path against the CPU plain path;
+6. numbers: us/token and events/s for generation, training tokens/s, and
    the attention kernels' time against their plain versions.
 
-The line before the last is a JSON object of the path's kernels; the last
+The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 import json
@@ -97,6 +106,7 @@ def main() -> None:
           v1_max_abs_err=errs["v1"], cases=48,
           tol={"float32": kc.ATTN_TOL_F32,
                "bfloat16": f"{kc.ATTN_REL_TOL_BF16} * max|o|"})
+    bwd_errs = check_attention_bwd(kc)
     for dtype in ("float32", "bfloat16"):
         for B in (1, 8):
             for count in (0, 100, kc.MEM_LEN):
@@ -111,43 +121,64 @@ def main() -> None:
                             for c in res["chunks"]])
     torch.cuda.synchronize()
 
-    # 4. main path through the CLI
+    # 4. main path, generation, through the CLI
     summaries = run_main_path(_native)
     slice_ref = check_slice_reference()
     phase("main_path.reference", **slice_ref)
     if not slice_ref["ok"]:
         fail("kernel path and CPU plain path disagree on the reference slice")
 
-    # 5. numbers
+    # 5. main path, training, through the CLI
+    train_launches = run_train_path(_native)
+    train_ref = check_train_reference()
+    phase("main_path.train_reference", **train_ref)
+    if not train_ref["ok"]:
+        fail("kernel path and CPU plain path disagree on the training step")
+
+    # 6. numbers
     numbers = measure(kc, card)
+    numbers.update(measure_train(kc, card))
+    launches = {k: summaries["launches"][k] + train_launches[k]
+                for k in _native.LAUNCHES}
+    by_path = {k: {"generate": summaries["launches"][k],
+                   "train": train_launches[k]} for k in _native.LAUNCHES}
+
+    def entry(name, source, replaces, key, f32, bf16, num):
+        return {"name": name, "route": "cuda",
+                "source": f"transformer_gan_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[key],
+                "launches_by_path": by_path[key], "max_abs_err": f32,
+                "max_abs_err_bf16": bf16, "ms": num["ms"],
+                "plain_ms": num["plain_ms"], "shape": num.get("shape")}
+
     kernels = [
-        {"name": "xl_attn_fwd_v2 (K1f)", "route": "cuda",
-         "source": "transformer_gan_torch/csrc/attention.cu",
-         "replaces": "transformer_gan_tpu/ops/pallas_attention_v2.py:111",
-         "launches": summaries["launches"]["xl_attn_fwd_v2"],
-         "max_abs_err": errs["v2"]["float32"],
-         "max_abs_err_bf16": errs["v2"]["bfloat16"],
-         "ms": numbers["v2"]["ms"], "plain_ms": numbers["v2"]["plain_ms"]},
-        {"name": "generate_chunk (K3)", "route": "cuda",
-         "source": "transformer_gan_torch/csrc/generate.cu",
-         "replaces": "transformer_gan_tpu/ops/pallas_generate.py:105",
-         "launches": summaries["launches"]["generate_chunk"],
-         "max_abs_err": errs["gen"]["float32"],
-         "max_abs_err_bf16": errs["gen"]["bfloat16"],
-         "ms": numbers["gen"]["ms"], "plain_ms": numbers["gen"]["plain_ms"]},
-    ]
-    other = [
-        {"name": "xl_attn_fwd_v1 (K2f)", "route": "cuda",
-         "source": "transformer_gan_torch/csrc/attention.cu",
-         "replaces": "transformer_gan_tpu/ops/pallas_attention.py:62",
-         "launches": summaries["launches"]["xl_attn_fwd_v1"],
-         "on_main_path": False,
-         "max_abs_err": errs["v1"]["float32"],
-         "max_abs_err_bf16": errs["v1"]["bfloat16"],
-         "ms": numbers["v1"]["ms"], "plain_ms": numbers["v1"]["plain_ms"]},
+        entry("xl_attn_fwd_v2 (K1f)", "attention.cu",
+              "transformer_gan_tpu/ops/pallas_attention_v2.py:111",
+              "xl_attn_fwd_v2", max(errs["v2"]["float32"],
+                                    bwd_errs["fwd_v2"]["float32"]),
+              max(errs["v2"]["bfloat16"], bwd_errs["fwd_v2"]["bfloat16"]),
+              numbers["v2"]),
+        entry("xl_attn_bwd_v2 (K1b)", "attention_bwd.cu",
+              "transformer_gan_tpu/ops/pallas_attention_v2.py:166",
+              "xl_attn_bwd_v2", bwd_errs["v2"]["float32"],
+              bwd_errs["v2"]["bfloat16"], numbers["bwd_v2"]),
+        entry("xl_attn_fwd_v1 (K2f)", "attention.cu",
+              "transformer_gan_tpu/ops/pallas_attention.py:62",
+              "xl_attn_fwd_v1", max(errs["v1"]["float32"],
+                                    bwd_errs["fwd_v1"]["float32"]),
+              max(errs["v1"]["bfloat16"], bwd_errs["fwd_v1"]["bfloat16"]),
+              numbers["v1"]),
+        entry("xl_attn_bwd_v1 (K2b)", "attention_bwd.cu",
+              "transformer_gan_tpu/ops/pallas_attention.py:98",
+              "xl_attn_bwd_v1", bwd_errs["v1"]["float32"],
+              bwd_errs["v1"]["bfloat16"], numbers["bwd_v1"]),
+        entry("generate_chunk (K3)", "generate.cu",
+              "transformer_gan_tpu/ops/pallas_generate.py:105",
+              "generate_chunk", errs["gen"]["float32"],
+              errs["gen"]["bfloat16"], numbers["gen"]),
     ]
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels, "other_kernels": other}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -281,9 +312,338 @@ def measure(kc, card: str) -> dict:
                                                 1, kc.MEM_LEN)
         ms, plain_ms = kc.time_in_turns(lambda: kernel(*args),
                                         lambda: plain(*args), iters=20)
-        res[variant] = {"ms": ms, "plain_ms": plain_ms}
+        res[variant] = {"ms": ms, "plain_ms": plain_ms,
+                        "shape": f"q 128, B 1, M {kc.MEM_LEN}, bf16"}
         phase(f"numbers.attention_{variant}", q=128, B=1, M=kc.MEM_LEN,
               dtype="bfloat16", card=card, kernel_ms=ms, plain_ms=plain_ms)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+TRAIN_MEM = 1024
+B_TRAIN = 128
+TRAIN_OVERRIDES = {"batch_size": B_TRAIN, "max_step": 8, "log_interval": 4,
+                   "eval_interval": 8}
+
+
+def check_attention_bwd(kc) -> dict:
+    """K1b and K2b against their plain versions, and K1f / K2f with
+    dropout, at full width (H 10, dh 50), q 128: B 1 and 8 over the M /
+    count grid, a reset case at B 3, and the training op-point's B 128
+    (K1b at M 1024 with a full ring, K2b at M 0; dropatt 0.1)."""
+    errs = {k: {} for k in ("v2", "v1", "fwd_v2", "fwd_v1")}
+    op_point = {}
+    cases = 0
+    grid = [(M, count) for M in (0, TRAIN_MEM) for count in (0, 500, M)
+            if count <= M]
+    for variant in ("v2", "v1"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for B in (1, 8):
+                for M, count in dict.fromkeys(grid):
+                    for rate in (0.0, 0.1):
+                        res = kc.check_attention_bwd(variant, dtype, 128, B,
+                                                     count, M, rate=rate)
+                        cases += 1
+                        if not res["ok"]:
+                            fail(f"attention backward disagrees: {res}")
+                        key = res["dtype"]
+                        g = max(v["max_abs_err"] for v in res["grads"].values())
+                        errs[variant][key] = max(errs[variant].get(key, 0.0), g)
+                        errs["fwd_" + variant][key] = max(
+                            errs["fwd_" + variant].get(key, 0.0),
+                            res["o_max_abs_err"])
+            reset = torch.tensor([0, 1, 0], device="cuda", dtype=torch.int32)
+            res = kc.check_attention_bwd(variant, dtype, 128, 3, TRAIN_MEM,
+                                         TRAIN_MEM, rate=0.1, reset=reset)
+            cases += 1
+            if not res["ok"]:
+                fail(f"attention backward disagrees (reset rows): {res}")
+            # the training op-point's batch: drk's splits walk 16 batches each
+            M = TRAIN_MEM if variant == "v2" else 0
+            res = kc.check_attention_bwd(variant, dtype, 128, B_TRAIN, M, M,
+                                         rate=0.1)
+            cases += 1
+            if not res["ok"]:
+                fail(f"attention backward disagrees (B {B_TRAIN}): {res}")
+            g = max(v["max_abs_err"] for v in res["grads"].values())
+            errs[variant][res["dtype"]] = max(errs[variant][res["dtype"]], g)
+            errs["fwd_" + variant][res["dtype"]] = max(
+                errs["fwd_" + variant][res["dtype"]], res["o_max_abs_err"])
+            op_point[f"{variant}_{res['dtype']}"] = {
+                k: v["max_abs_err"] for k, v in res["grads"].items()}
+            del res
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    phase("kernels.attention_bwd", cases=cases, op_point_B=B_TRAIN,
+          op_point_grad_max_abs_err=op_point, grad_max_abs_err={
+        k: errs[k] for k in ("v2", "v1")}, fwd_dropout_max_abs_err={
+        k: errs["fwd_" + k] for k in ("v2", "v1")},
+          tol={"grads": {"float32": f"{kc.GRAD_REL_TOL_F32} * max|ref|",
+                         "bfloat16": f"{kc.GRAD_REL_TOL_BF16} * max|ref|"},
+               "o": {"float32": kc.ATTN_TOL_F32,
+                     "bfloat16": f"{kc.ATTN_REL_TOL_BF16} * max|o|"}})
+    return errs
+
+
+def write_random_corpus(data_dir: str, vocab_path: str, n_train: int,
+                        train_len: int, n_eval: int, eval_len: int,
+                        seed: int = 0) -> None:
+    """A seeded random corpus in the layout the port's ``MusicDataset``
+    reads: ``vocab.txt`` (a copy of ``vocab_path``) and ``train/``,
+    ``valid/``, ``test/`` folders of int32 token pieces whose lengths vary
+    by up to 20% around ``train_len`` / ``eval_len``, drawn from every id but
+    <S> and <PAD>. The model learns nothing from it (the CPU CLI tests use
+    it too)."""
+    import numpy as np
+    from transformer_gan_torch.data.vocab import BaseVocab
+
+    rng = np.random.RandomState(seed)
+    vocab = BaseVocab.from_file(vocab_path)
+    os.makedirs(data_dir, exist_ok=True)
+    with open(os.path.join(data_dir, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab.all_tokens) + "\n")
+    for split, n, length in (("train", n_train, train_len),
+                             ("valid", n_eval, eval_len),
+                             ("test", n_eval, eval_len)):
+        folder = os.path.join(data_dir, split)
+        os.makedirs(folder, exist_ok=True)
+        for k in range(n):
+            size = int(length * rng.uniform(0.8, 1.2))
+            np.save(os.path.join(folder, f"{k:05d}.npy"),
+                    rng.randint(2, len(vocab), size).astype(np.int32))
+
+
+def _train_cfg_file(work: str, name: str, **train) -> str:
+    """experiment_baseline.yml with TRAIN overrides, written beside the
+    corpus."""
+    import yaml
+    with open(os.path.join(ROOT, "training_config",
+                           "experiment_baseline.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["TRAIN"].update(train)
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _train_log(run_dir: str) -> dict:
+    """The logged train lines (step, tokens/s, nll) and eval NLLs."""
+    import re
+    with open(os.path.join(run_dir, "train_rank0.log")) as f:
+        text = f.read()
+    steps = [{"step": int(m[0]), "tokens_per_s": float(m[1]),
+              "nll": float(m[2]), "grad_norm": float(m[3])}
+             for m in re.findall(r"Train Step (\d+)/\d+, lr=[\d.e-]+, "
+                                 r"tokens/s=([\d.]+), nll=([\d.]+), "
+                                 r"ppl=[\d.a-z]+, grad norm=([\d.]+)", text)]
+    evals = [float(m) for m in re.findall(r"val nll=([\d.]+)", text)]
+    tests = [float(m) for m in re.findall(r"test nll=([\d.]+)", text)]
+    return {"train": steps, "val_nll": evals, "test_nll": tests}
+
+
+def run_train_path(_native) -> dict:
+    """The training CLI on the baseline config over a seeded random corpus:
+    8 steps at mem 1024 (K1f, K1b), 2 steps at mem 0 with random_crop (K2f,
+    K2b), then the generation CLI on the trained run directory. Returns the
+    launch counts summed over the three runs."""
+    import math
+    from transformer_gan_torch.cli import generate as gcli
+    from transformer_gan_torch.cli import train as tcli
+    from transformer_gan_torch.config import PACKAGED_VOCAB, inference_config
+
+    work = os.path.join(ROOT, "build", "chip_smoke", "train")
+    data = os.path.join(work, "data")
+    t0 = time.perf_counter()
+    write_random_corpus(data, PACKAGED_VOCAB, n_train=160, train_len=1400,
+                        n_eval=11, eval_len=300, seed=0)
+    corpus_s = time.perf_counter() - t0
+    total = dict.fromkeys(_native.LAUNCHES, 0)
+    runs = {}
+    for name, train, need in (
+            ("mem1024", TRAIN_OVERRIDES, ("xl_attn_fwd_v2", "xl_attn_bwd_v2")),
+            ("mem0_random_crop", {**TRAIN_OVERRIDES, "max_step": 2,
+                                  "log_interval": 1, "eval_interval": 2,
+                                  "mem_length": 0, "random_crop": True},
+             ("xl_attn_fwd_v1", "xl_attn_bwd_v1"))):
+        cfg = _train_cfg_file(work, f"{name}.yml", **train)
+        torch.cuda.synchronize()
+        _native.reset_launches()
+        t0 = time.perf_counter()
+        trainer = tcli.main(["--data_dir", data, "--cfg", cfg, "--work_dir",
+                             os.path.join(work, name)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_native.LAUNCHES)
+        for k in need:
+            if launches[k] == 0:
+                fail(f"the training run {name} never launched {k}")
+        log = _train_log(trainer.work_dir)
+        if not log["train"] or not all(math.isfinite(x["nll"])
+                                       for x in log["train"]):
+            fail(f"training run {name} logged no finite NLL: {log}")
+        runs[name] = {"run_dir": os.path.relpath(trainer.work_dir, ROOT),
+                      "steps": trainer.train_step_num, "wall_s": wall,
+                      "launches": launches, **log}
+        for k in total:
+            total[k] += launches[k]
+    phase("main_path.train", corpus_write_s=corpus_s,
+          overrides=TRAIN_OVERRIDES, **runs)
+
+    icfg = inference_config()
+    icfg.EVENT.vocab_file_path = PACKAGED_VOCAB
+    icfg.MODEL.model_directory = os.path.join(ROOT, runs["mem1024"]["run_dir"])
+    icfg.MODEL.checkpoint_name = "checkpoint_last"
+    icfg.MODEL.memory_length = 1024
+    icfg.OUTPUT.output_txt_directory = os.path.join(work, "generated")
+    icfg.GENERATION.generation_length = 256
+    icfg.INPUT.num_midi_files = 2
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    summary = gcli.main(icfg, "cuda:0",
+                        torch.Generator(device="cuda:0").manual_seed(7))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    vocab, _ = gcli.load_vocab(PACKAGED_VOCAB)
+    for fp in summary["files"]:
+        with open(fp) as f:
+            toks = [l.strip() for l in f if l.strip()]
+        if len(toks) != 256 or any(t not in vocab for t in toks):
+            fail(f"{fp}: generation from the trained run is malformed")
+    if len(summary["files"]) != 2 or launches["generate_chunk"] == 0:
+        fail(f"generation from the trained run: {summary}, {launches}")
+    for k in total:
+        total[k] += launches[k]
+    phase("main_path.train_generate", files=len(summary["files"]),
+          tokens=summary["tokens"], launches=launches)
+    return total
+
+
+# Card kernel path vs CPU plain path, two fp32 steps (check_train_reference).
+# The gradient is held leaf by leaf: max |g_card - g_cpu| over a parameter
+# tensor, relative to that tensor's max |g_cpu| (an H100 read 4.7e-6, in
+# layers.1.r_w). Parameters are held to two fp32 roundings of their value
+# plus 1e-8: one step moves a weight by about lr = 0.004 x step / 4000 =
+# 1e-6 whatever the gradient's size, so a wrong or missing update shows
+# there, a wrong gradient magnitude only in the gradient check.
+TRAIN_REF_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4,
+                 "grad_leaf_rel": 2e-5, "param_rtol": 2 * 2.0 ** -23,
+                 "param_atol": 1e-8, "mem_abs": 1e-3}
+
+
+def check_train_reference() -> dict:
+    """Two MLE steps at full width in fp32 (B 2, tgt 128, mem 256, dropout
+    0, a reset row in step 2): the kernel path on the card against the plain
+    path on the CPU, same batches and weights. Per step: the loss, the
+    pre-clip grad norm and every gradient leaf; after the steps the
+    parameters and the new memories (atol 1e-3: six layers, the kernel
+    check's K/V bound). Tolerances: ``TRAIN_REF_TOL``; the grad norm's rtol
+    allows for fp32 sums in another order over 13.7M gradients."""
+    from transformer_gan_torch import kernel_check as kc
+
+    B, tgt, M = 2, 128, 256
+    gen = torch.Generator().manual_seed(3)
+    batches = [(torch.randint(2, 310, (1, tgt, B), generator=gen),
+                torch.randint(2, 310, (1, tgt, B), generator=gen),
+                torch.tensor([[False, i == 1]])) for i in range(2)]
+    out = {}
+    for device in ("cuda:0", "cpu"):
+        case = kc.TrainCase(B=B, tgt=tgt, M=M, dtype="float32", dropout=0.0,
+                            device=device)
+        mets, grads = [], []
+        for d, t, r in batches:
+            d, t, r = d.to(device), t.to(device), r.to(device)
+            grads.append(case.flat_grad(d, t, r).cpu())
+            case.state, met = case.fn(case.state, d, t, r)
+            mets.append({k: float(v) for k, v in met.items()})
+        out[device] = (mets, grads, case.state.flat.detach().cpu(),
+                       case.state.mems[0].hids.cpu())
+    layout = case.state.layout
+    (mk, gk, pk, hk), (mp, gp, pp, hp) = out["cuda:0"], out["cpu"]
+    tol = TRAIN_REF_TOL
+    loss_rel = max(abs(a["loss_weighted"] - b["loss_weighted"])
+                   / abs(b["loss_weighted"]) for a, b in zip(mk, mp))
+    gn_rel = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(mk, mp))
+    # the step's own grad norm must be the norm of the gradient compared
+    # (summed as the step sums it: torch's fp32 norm() of 13.7M entries
+    # is 3e-4 off on the CPU)
+    gn_self = max(abs(float(g.square().sum().sqrt()) - m["grad_norm"])
+                  / m["grad_norm"] for g, m in zip(gk + gp, mk + mp))
+    leaf_rel, worst = 0.0, None
+    for g_k, g_p in zip(gk, gp):
+        for name, off, shp in zip(layout.names, layout.offsets,
+                                  layout.shapes):
+            n = 1
+            for s in shp:
+                n *= s
+            a, b = g_k[off:off + n], g_p[off:off + n]
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            if rel > leaf_rel:
+                leaf_rel, worst = rel, name
+    p_excess = float(((pk - pp).abs() - tol["param_rtol"] * pp.abs()).max())
+    p_err = float((pk - pp).abs().max())
+    m_err = float((hk - hp).abs().max())
+    return {"loss_rel_err": loss_rel, "grad_norm_rel_err": gn_rel,
+            "grad_norm_self_rel_err": gn_self,
+            "grad_leaf_max_rel_err": leaf_rel, "grad_worst_leaf": worst,
+            "param_max_abs_err": p_err,
+            "param_max_err_beyond_rtol": p_excess, "mem_max_abs_err": m_err,
+            "kernel_loss": [m["loss_weighted"] for m in mk],
+            "plain_loss": [m["loss_weighted"] for m in mp], "tol": tol,
+            "ok": (loss_rel <= tol["loss_rel"]
+                   and gn_rel <= tol["grad_norm_rel"]
+                   and gn_self <= tol["grad_norm_rel"]
+                   and leaf_rel <= tol["grad_leaf_rel"]
+                   and p_excess <= tol["param_atol"]
+                   and m_err <= tol["mem_abs"])}
+
+
+def measure_train(kc, card: str) -> dict:
+    """bf16 at the training op-point (B 128, tgt 128, mem 1024): training
+    tokens/s of the kernel path against the plain path (the attention
+    routed to models/attention.rel_attention_kv), and the attention
+    kernels' forward + backward per layer call against their plain
+    versions. Timed in turns (plain, kernel, kernel, plain)."""
+    res = {}
+    B, tgt = TRAIN_OVERRIDES["batch_size"], 128
+    for variant, M in (("v2", TRAIN_MEM), ("v1", 0)):
+        fwd, fwd_p, bwd, bwd_p, fa, ba, kw = kc.attention_bwd_case(
+            variant, torch.bfloat16, tgt, B, M, M, rate=0.1)
+        o, m, l = fwd(*fa, **kw)
+        args = ba(o, m, l)
+        pair = kc.time_in_turns(lambda: bwd(*ba(*fwd(*fa, **kw)), **kw),
+                                lambda: bwd_p(*ba(*fwd_p(*fa, **kw)), **kw),
+                                iters=3)
+        b_ms = kc.time_in_turns(lambda: bwd(*args, **kw),
+                                lambda: bwd_p(*args, **kw), iters=3)
+        shape = f"q {tgt}, B {B}, M {M}, bf16, dropatt 0.1"
+        res["bwd_" + variant] = {"ms": b_ms[0], "plain_ms": b_ms[1],
+                                 "shape": shape}
+        phase(f"numbers.train_attention_{variant}", q=tgt, B=B, M=M,
+              dtype="bfloat16", card=card, fwd_bwd_ms=pair[0],
+              fwd_bwd_plain_ms=pair[1], bwd_ms=b_ms[0],
+              bwd_plain_ms=b_ms[1])
+        del o, m, l, args
+    torch.cuda.empty_cache()
+
+    case = kc.TrainCase(B=B, tgt=tgt, M=TRAIN_MEM)
+    case.steps(6)         # warm-up, and fills the 1024-slot memory:
+    case.steps(2, plain=True)  # every timed step sees a full ring
+    torch.cuda.reset_peak_memory_stats()
+    turns = [case.steps(3, plain=True), case.steps(3), case.steps(3),
+             case.steps(3, plain=True)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k_s, p_s = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    tokens = case.tokens
+    phase("numbers.train", B=B, tgt=tgt, M=TRAIN_MEM, dtype="bfloat16",
+          dropout=0.1, card=card, kernel_step_s=k_s, plain_step_s=p_s,
+          kernel_tokens_per_s=tokens / k_s, plain_tokens_per_s=tokens / p_s,
+          turns_s=turns, peak_gib=peak)
     return res
 
 

@@ -153,15 +153,24 @@ def test_fused_contracts_match_pallas_interpret(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_training_inputs():
+    """The kernels' wrappers no longer refuse training inputs: the calls
+    that raised before the backward kernels were ported now return
+    gradients (the contract with dropout, the raw forward with inputs that
+    require grad, through XLAttnV2)."""
     qlen, bsz = 9, 1
     t = _t(_inputs(qlen, bsz))
-    with pytest.raises(NotImplementedError):
-        tops.rel_attention_kv_fused_v2(
-            t["w"], t["k_mem"], t["v_mem"], t["r"], t["qkv_w"], t["r_w"],
-            t["r_w_bias"], t["r_r_bias"], 0, None, H, DH, same_length=True,
-            dropatt=0.1)
-    q = torch.zeros(H, bsz, qlen, DH, requires_grad=True)
+    qkv_w = t["qkv_w"].requires_grad_()
+    out = tops.rel_attention_kv_fused_v2(
+        t["w"], t["k_mem"], t["v_mem"], t["r"], qkv_w, t["r_w"],
+        t["r_w_bias"], t["r_r_bias"], 0, None, H, DH, same_length=True,
+        dropatt=0.1, seed=5)
+    out[0].sum().backward()
+    assert qkv_w.grad is not None and qkv_w.grad.abs().sum() > 0
+    q = torch.randn(H, bsz, qlen, DH, requires_grad=True)
     z = torch.zeros(H, bsz, MEM, DH)
-    with pytest.raises(NotImplementedError):
-        tops.xl_attn_fwd_v2(q, q, z, z, q, q,
-                            torch.zeros(H, MEM + 2 * qlen, DH), 0, None, True)
+    o = tops.XLAttnV2.apply(q, q, z, z, q, q,
+                            torch.zeros(H, MEM + 2 * qlen, DH), 0, None, 0,
+                            0.0, True)
+    o.square().sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    assert q.grad.abs().sum() > 0

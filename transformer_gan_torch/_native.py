@@ -29,10 +29,11 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "transformer_gan_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
+                            "xl_attn_bwd_v2": 0, "xl_attn_bwd_v1": 0,
                             "generate_chunk": 0}
 
 _lock = threading.Lock()
@@ -74,7 +75,8 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.
     Returns its path; raises ``RuntimeError`` with nvcc's output on failure.
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory, spills) to a
     fresh build; its output lands in ``BUILD_LOG["log"]``."""
@@ -83,21 +85,37 @@ def build(verbose: bool = False) -> Path:
         BUILD_LOG.update(path=str(out), seconds=0.0, cached=True, log="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-I", str(CSRC), "-o", tmp, *cus]
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    BUILD_LOG.update(path=str(out), seconds=secs, cached=False,
-                     log=proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmp_dir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c",
+                   "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            text, _ = proc.communicate()
+            log.append(text)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(tmp_dir, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    BUILD_LOG.update(path=str(out), seconds=time.perf_counter() - t0,
+                     cached=False, log="".join(log))
     return out
 
 
@@ -108,11 +126,16 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            i64 = ctypes.c_longlong
+            i64, u32 = ctypes.c_longlong, ctypes.c_uint
             handle.tg_xl_attn_fwd.argtypes = [
                 i32, i32, vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, vp,
-                vp, vp, vp, i32, i32, i32, i32, i32, i32, f32, i32, vp]
+                vp, vp, vp, i32, i32, i32, i32, i32, i32, f32, i32, u32, u32,
+                f32, vp]
             handle.tg_xl_attn_fwd.restype = i32
+            handle.tg_xl_attn_bwd.argtypes = [vp, vp]
+            handle.tg_xl_attn_bwd.restype = i32
+            handle.tg_sizeof_attn_bwd_args.argtypes = []
+            handle.tg_sizeof_attn_bwd_args.restype = i32
             handle.tg_generate_chunk.argtypes = [vp, vp]
             handle.tg_generate_chunk.restype = i32
             handle.tg_sizeof_gen_args.argtypes = []

@@ -22,17 +22,13 @@ import time
 import numpy as np
 import torch
 
-from ..config import PACKAGED_VOCAB, inference_config, training_config
+from ..config import (PACKAGED_VOCAB, inference_config, is_null,
+                      training_config)
 from ..convert import PARAMS_SUFFIX, load_params
 from ..infer import sample as sampling
 from ..models import xl
 
 MAX_LANES = 8
-
-
-def is_null(value) -> bool:
-    """The configs use "Null" (or "") for None."""
-    return value is None or value == "Null" or value == ""
 
 
 def load_vocab(vocab_path: str = PACKAGED_VOCAB):

@@ -2,10 +2,12 @@
 JAX package.
 
 ``transformer_gan_tpu/config.py`` holds the full training and inference
-schemas. The port reads the inference tree and the training keys that
-generation needs (the model's shape, the start token, the seed and the
-precision keys under ``TPU``); a file may set any other key, which is kept
-as it is. Values keep attribute access (``cfg.MODEL.num_layers``).
+schemas. The port's defaults cover the keys it reads (the model's shape,
+the MLE trainer's TRAIN / EVALUATE / INITIALIZER / DATASET keys, the keys
+that must stay off because their features are not ported, and the
+precision keys under ``TPU``), each with the JAX package's default; a file
+may set any other key, which is kept as it is. Values keep attribute access
+(``cfg.MODEL.num_layers``).
 
 The vocab defaults to the file the JAX package ships, found from this
 module's location, so no default path depends on the working directory.
@@ -26,10 +28,25 @@ TRAINING_DEFAULTS = {
               "inner_size": 1000, "dropout": 0.1, "attention_dropout": 0.1,
               "pre_lnorm": False, "clamp_len": -1, "tie_embedding": True,
               "same_length": False},
-    "TRAIN": {"seed": 1111, "replace_start_with_pad": False,
-              "append_note_status": False},
-    "TPU": {"compute_dtype": "bfloat16", "softmax_dtype": "float32",
-            "cache_kv": True},
+    "TRAIN": {"load_from_previous": "Null", "batch_size": 200,
+              "batch_chunk": 1, "tgt_length": 500, "mem_length": 50,
+              "seed": 1111, "optim": "adam", "lr": 0.00025 / 4.0,
+              "lr_min": 0.0, "scheduler": "cosine", "warmup_step": 0,
+              "decay_rate": 0.5, "patience": 10, "clip": 0.25,
+              "max_step": 200000, "log_interval": 200,
+              "eval_interval": 4000, "pad_type": "model", "use_mle": True,
+              "random_crop": False, "replace_start_with_pad": False,
+              "weight_decay": 0.0, "append_note_status": False},
+    "EVALUATE": {"batch_size": 10, "tgt_length": 128, "mem_length": 128},
+    "INITIALIZER": {"base_init": ["normal", 0.01],
+                    "embed_init": ["normal", 0.01]},
+    "DATASET": {"continuous_refill": False},
+    "DISCRIMINATOR": {"type": "Null", "start_iter": 100},
+    "METRICS": {"use_bleu": False, "use_self_bleu": False,
+                "CLASSIFIER": {"use_classifier": False}},
+    "TPU": {"compute_dtype": "bfloat16", "param_dtype": "float32",
+            "softmax_dtype": "float32", "cache_kv": True, "remat": False,
+            "profile_dir": ""},
 }
 
 INFERENCE_DEFAULTS = {
@@ -47,6 +64,11 @@ INFERENCE_DEFAULTS = {
               "num_midi_files": 5, "num_empty_tokens_to_ignore": 0},
     "OUTPUT": {"output_txt_directory": ""},
 }
+
+
+def is_null(value) -> bool:
+    """The configs use "Null" (or "") for None."""
+    return value is None or value == "Null" or value == ""
 
 
 class Config(dict):

@@ -10,7 +10,16 @@ checkpoint once where JAX is installed::
         --out WORK/checkpoint_last.pt
 
 The port's generation CLI then reads ``<model_directory>/<checkpoint_name>.pt``
-beside the training ``config.yml``.
+beside the training ``config.yml``. A whole JAX training checkpoint
+(parameters, fused optimizer state, metadata) converts into the port's
+checkpoint files, so a JAX run can be restarted in the port::
+
+    python -m transformer_gan_torch.convert --checkpoint RUN/checkpoint_last \
+        --train-state RUN_PORT
+
+The optimizer's flat ``[P]`` moments are in the JAX tree's ``ravel_pytree``
+order in both packages (``train.optim.flat_names``), so they copy as they
+are.
 """
 from __future__ import annotations
 
@@ -65,6 +74,50 @@ def import_jax_checkpoint(path: str) -> dict[str, torch.Tensor]:
     return params_from_jax(tree)
 
 
+def opt_state_from_jax(state):
+    """JAX ``FusedOptState`` (or orbax's dict of it: count, mu, nu,
+    lr.lr_scale) -> the port's ``train.optim.FusedOptState`` on the CPU."""
+    from .train.optim import FusedOptState
+    if isinstance(state, dict):
+        count, mu, nu = state["count"], state["mu"], state["nu"]
+        lr = state["lr"]
+        lr_scale = lr["lr_scale"] if isinstance(lr, dict) else lr.lr_scale
+    else:
+        count, mu, nu, lr_scale = (state.count, state.mu, state.nu,
+                                   state.lr.lr_scale)
+    return FusedOptState(count=int(np.asarray(count)), mu=_tensor(mu),
+                         nu=_tensor(nu), lr_scale=float(np.asarray(lr_scale)))
+
+
+def opt_state_to_jax(state) -> dict:
+    """The port's ``FusedOptState`` -> the JAX package's ``FusedOptState``
+    as orbax stores it: ``{"count": int32, "mu": [P], "nu": [P], "lr":
+    {"lr_scale": float32}}`` of numpy arrays (the JAX side builds its
+    NamedTuple from them; :func:`opt_state_from_jax` reads them back)."""
+    return {"count": np.asarray(state.count, np.int32),
+            "mu": state.mu.detach().to("cpu", torch.float32).numpy().copy(),
+            "nu": state.nu.detach().to("cpu", torch.float32).numpy().copy(),
+            "lr": {"lr_scale": np.asarray(state.lr_scale, np.float32)}}
+
+
+def import_jax_train_checkpoint(path: str, work_dir: str) -> str:
+    """Read a whole JAX training checkpoint (orbax directory ``path`` with
+    params, the fused optimizer state and metadata.json; needs JAX and
+    orbax) and write it as the port's checkpoint of the same name into
+    ``work_dir``, where ``--restart`` picks it up. Returns the parameter
+    file's path."""
+    import os
+    from transformer_gan_tpu.train.checkpoint import (load_checkpoint,
+                                                      load_metadata)
+    from .train import checkpoint as ckpt
+    payload = load_checkpoint(path)
+    os.makedirs(work_dir, exist_ok=True)
+    return ckpt.save_checkpoint(
+        work_dir, os.path.basename(os.path.normpath(path)),
+        params_from_jax(payload["params"]),
+        opt_state_from_jax(payload["opt_state"]), load_metadata(path))
+
+
 def save_params(path: str, params: dict[str, torch.Tensor]) -> None:
     torch.save({"format": FORMAT,
                 "params": {k: v.detach().cpu().contiguous()
@@ -82,10 +135,17 @@ def main() -> None:
     ap = argparse.ArgumentParser(
         description="Convert a JAX (orbax) checkpoint to the port's format")
     ap.add_argument("--checkpoint", required=True, help="orbax checkpoint dir")
-    ap.add_argument("--out", required=True, help="output .pt file")
+    out = ap.add_mutually_exclusive_group(required=True)
+    out.add_argument("--out", help="output .pt parameter file")
+    out.add_argument("--train-state", help="run directory to write the whole "
+                     "training checkpoint into (params, optimizer, metadata)")
     args = ap.parse_args()
-    save_params(args.out, import_jax_checkpoint(args.checkpoint))
-    print(f"wrote {args.out}")
+    if args.out:
+        save_params(args.out, import_jax_checkpoint(args.checkpoint))
+        print(f"wrote {args.out}")
+    else:
+        print("wrote", import_jax_train_checkpoint(args.checkpoint,
+                                                   args.train_state))
 
 
 if __name__ == "__main__":

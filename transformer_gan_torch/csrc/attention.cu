@@ -8,7 +8,11 @@
 //     read from a precomputed [BH, q, klen] input (BD_IN = true).
 // Both write o = softmax(S) V in fp32 and the row max m and row sum l of the
 // unnormalised exponentials, with the mask of pallas_attention._mask_block
-// (memory valid count, per-row reset, same_length band).
+// (memory valid count, per-row reset, same_length band). Attention dropout
+// (training) zeroes P where the (seed, bh, i, j) hash of common.cuh falls
+// below thr and scales o by 1 / (1 - rate) after P V, as the TPU kernels do;
+// l stays the sum of the undropped exponentials. The backward kernels
+// (attention_bwd.cu) redraw the same mask.
 //
 // What bounds it on the H100: at the prime op-point (H 10, q <= 128, M 4146,
 // dh 50) each (h, b) block streams its K/V memory once, 2 * M * dh * 2 bytes
@@ -32,20 +36,6 @@ constexpr int kKeyTile = 32;   // keys per tile: one per lane
 constexpr int kThreads = 128;
 constexpr int kMaxDPL = 4;     // output columns per lane: d_head <= 128
 
-// True = masked. Mirrors pallas_attention._mask_block and
-// models/xl.build_attn_mask in the static ring's index space.
-__device__ __forceinline__ bool xl_masked(int i, int j, int q, int M, int count,
-                                          bool reset_row, int same_length) {
-  bool mk = (j > M + i) || (j < M - count);
-  if (same_length) {
-    const int j_dyn = j - (M - count);
-    const int mask_len = count + q - M;
-    const int shift = mask_len > 0 ? q - mask_len : q;
-    mk = mk || (j_dyn <= i - shift);
-  }
-  return mk || (reset_row && j < M);
-}
-
 template <typename T, bool BD_IN>
 __global__ void __launch_bounds__(kThreads)
 xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
@@ -58,7 +48,8 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
                    float* __restrict__ o, float* __restrict__ m_out,
                    float* __restrict__ l_out,
                    int B, int q, int M, int dh, int count, float scale,
-                   int same_length) {
+                   int same_length, unsigned int seed, unsigned int thr,
+                   float rate) {
   extern __shared__ float smem[];
   const int bh = blockIdx.y;
   const int i0 = blockIdx.x * kRows;
@@ -159,7 +150,10 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
       const float corr = m_run[rr] == -INFINITY ? 0.f : expf(m_run[rr] - m_new);
       l_run[rr] = l_run[rr] * corr + warp_sum(p);
       m_run[rr] = m_new;
-      const float pv = rnd<T>(p);  // P is rounded to the value type before P V
+      // P is rounded to the value type before P V (after dropout)
+      const bool keep =
+          thr == 0u || drop_keep(drop_row_key(seed, bh, i), j, thr);
+      const float pv = rnd<T>(keep ? p : 0.f);
 #pragma unroll
       for (int c = 0; c < kMaxDPL; ++c) acc[rr][c] *= corr;
       for (int jj = 0; jj < kKeyTile; ++jj) {
@@ -178,7 +172,7 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
   for (int rr = 0; rr < 4; ++rr) {
     const int i = i0 + warp * 4 + rr;
     if (i >= q) continue;
-    const float inv = 1.f / l_run[rr];
+    const float inv = (1.f / l_run[rr]) / (1.f - rate);
 #pragma unroll
     for (int c = 0; c < kMaxDPL; ++c) {
       const int d = lane + 32 * c;
@@ -196,7 +190,8 @@ int launch(const void* qrw, const void* qrr, const void* kmem, const void* vmem,
            long long mem_bh, const void* kcur, const void* vcur, long long cur_bh,
            const void* rk, const void* bd, const int* reset, float* o, float* m,
            float* l, int BH, int B, int q, int M, int dh, int count, float scale,
-           int same_length, cudaStream_t stream) {
+           int same_length, unsigned int seed, unsigned int thr, float rate,
+           cudaStream_t stream) {
   const int ds = dh | 1;
   const size_t smem =
       sizeof(float) * ds * (2 * kRows + 2 * kKeyTile + (BD_IN ? 0 : kKeyTile + kRows - 1));
@@ -209,7 +204,7 @@ int launch(const void* qrw, const void* qrr, const void* kmem, const void* vmem,
       static_cast<const T*>(kmem), static_cast<const T*>(vmem), mem_bh,
       static_cast<const T*>(kcur), static_cast<const T*>(vcur), cur_bh,
       static_cast<const T*>(rk), static_cast<const T*>(bd), reset, o, m, l, B, q,
-      M, dh, count, scale, same_length);
+      M, dh, count, scale, same_length, seed, thr, rate);
   TG_CHECK();
   return 0;
 }
@@ -220,12 +215,14 @@ int launch(const void* qrw, const void* qrr, const void* kmem, const void* vmem,
 // the in-kernel-BD form; any [BH, ...] order for the BD-input form.
 // Memory K/V of block bh start at kmem + bh * mem_bh, current K/V at
 // kcur + bh * cur_bh; rows are dh apart. reset may be null (no reset rows).
+// Dropout: thr = 0 keeps everything (rate must then be 0).
 extern "C" int tg_xl_attn_fwd(int dtype, int bd_in, const void* qrw, const void* qrr,
                               const void* kmem, const void* vmem, long long mem_bh,
                               const void* kcur, const void* vcur, long long cur_bh,
                               const void* rk, const void* bd, const void* reset,
                               void* o, void* m, void* l, int BH, int B, int q, int M,
                               int dh, int count, float scale, int same_length,
+                              unsigned int seed, unsigned int thr, float rate,
                               void* stream) {
   if (dh > 32 * kMaxDPL || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
@@ -236,18 +233,18 @@ extern "C" int tg_xl_attn_fwd(int dtype, int bd_in, const void* qrw, const void*
   if (dtype == 0 && bd_in)
     return launch<float, true>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh, rk, bd,
                                rs, fo, fm, fl, BH, B, q, M, dh, count, scale,
-                               same_length, st);
+                               same_length, seed, thr, rate, st);
   if (dtype == 0)
     return launch<float, false>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh, rk, bd,
                                 rs, fo, fm, fl, BH, B, q, M, dh, count, scale,
-                                same_length, st);
+                                same_length, seed, thr, rate, st);
   if (dtype == 1 && bd_in)
     return launch<__nv_bfloat16, true>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh,
                                        rk, bd, rs, fo, fm, fl, BH, B, q, M, dh, count,
-                                       scale, same_length, st);
+                                       scale, same_length, seed, thr, rate, st);
   if (dtype == 1)
     return launch<__nv_bfloat16, false>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh,
                                         rk, bd, rs, fo, fm, fl, BH, B, q, M, dh, count,
-                                        scale, same_length, st);
+                                        scale, same_length, seed, thr, rate, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -72,6 +72,46 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return m;
 }
 
+// True = masked. Mirrors pallas_attention._mask_block and
+// models/attention.build_attn_mask in the static ring's index space: causal
+// edge, invalid left slots (count), same_length band, whole memory of a
+// reset row.
+__device__ __forceinline__ bool xl_masked(int i, int j, int q, int M, int count,
+                                          bool reset_row, int same_length) {
+  bool mk = (j > M + i) || (j < M - count);
+  if (same_length) {
+    const int j_dyn = j - (M - count);
+    const int mask_len = count + q - M;
+    const int shift = mask_len > 0 ? q - mask_len : q;
+    mk = mk || (j_dyn <= i - shift);
+  }
+  return mk || (reset_row && j < M);
+}
+
+// Attention dropout bits: a counter-based hash of (seed, bh, i, j), so the
+// forward and backward kernels and both plain versions draw the same mask
+// whatever order the blocks run in (ops/attention.dropout_bits is the same
+// function on tensors). The multipliers are below 2^31 so the plain version
+// computes every product exactly in int64. Keep where bits >= thr,
+// thr = rate * 2^32.
+__device__ __forceinline__ unsigned int tg_mix(unsigned int x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x346ca68bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ unsigned int drop_row_key(unsigned int seed, int bh, int i) {
+  const unsigned int k = tg_mix(tg_mix(seed + 0x9e3779b9u) ^ (static_cast<unsigned int>(bh) + 0x7f4a7c15u));
+  return tg_mix(k ^ (static_cast<unsigned int>(i) + 0x6a09e667u));
+}
+
+__device__ __forceinline__ bool drop_keep(unsigned int row_key, int j, unsigned int thr) {
+  return tg_mix(row_key ^ (static_cast<unsigned int>(j) + 0xbb67ae85u)) >= thr;
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.
 template <typename K>
 __host__ inline cudaError_t tg_allow_smem(K kernel, size_t bytes) {

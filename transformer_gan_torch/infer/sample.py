@@ -139,6 +139,7 @@ def make_prime_step(xcfg: xl.XLConfig, window: int = PRIME_WINDOW):
     <= ``window``-token forwards (exact for window <= mem_len under
     same_length). Returned logits cover only the final window."""
 
+    @torch.no_grad()
     def prime_chunked(params, context, mems):
         w = max(1, min(window, mems.hids.shape[4]))
         logits = None

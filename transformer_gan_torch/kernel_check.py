@@ -117,6 +117,151 @@ def check_attention(variant: str, dtype, q: int, B: int, count: int,
 
 
 # ---------------------------------------------------------------------------
+# K1b / K2b: XL attention backward, and the forwards with dropout
+# ---------------------------------------------------------------------------
+
+# Gradient tolerances, relative to the largest magnitude of each reference
+# output: fp32 sums run in another order (over up to M + q keys, and over
+# the batch for drk); in bf16 dS and P_drop are rounded to bf16 on both
+# sides, and an fp32 difference of order 1e-7 can move a rounding by one ulp.
+GRAD_REL_TOL_F32 = 1e-4
+GRAD_REL_TOL_BF16 = 2e-2
+
+
+def attention_bwd_case(variant: str, dtype, q: int, B: int, count: int,
+                       M: int, H: int = 10, dh: int = 50,
+                       same_length: bool = False, reset=None,
+                       rate: float = 0.0, seed: int = 0, device="cuda"):
+    """Seeded operands of K1f/K1b ("v2") or K2f/K2b ("v1") with dropout
+    ``rate``: (fwd, fwd_plain, bwd, bwd_plain, fwd_args, bwd_args(o, m, l)
+    -> args, do)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.5).to(dtype)
+
+    kw = dict(seed=1234 + seed, rate=rate)
+    if variant == "v2":
+        rk = rnd(H, M + 2 * q, dh)
+        rk[:, M + q:] = 0
+        ops = (rnd(H, B, q, dh), rnd(H, B, q, dh), rnd(H, B, M, dh),
+               rnd(H, B, M, dh), rnd(H, B, q, dh), rnd(H, B, q, dh), rk)
+        do = torch.randn((H, B, q, dh), generator=gen, device=device)
+        fwd_args = ops + (count, reset, same_length)
+
+        def bwd_args(o, m, l):
+            return ops + (m, l, o, do, count, reset, same_length)
+        return (attn_ops.xl_attn_fwd_v2, attn_ops.xl_attn_fwd_v2_plain,
+                attn_ops.xl_attn_bwd_v2, attn_ops.xl_attn_bwd_v2_plain,
+                fwd_args, bwd_args, kw)
+    BH, klen = B * H, M + q
+    reset_bh = None if reset is None else reset.repeat_interleave(H)
+    ops = (rnd(BH, q, dh), rnd(BH, klen, dh), rnd(BH, klen, dh),
+           rnd(BH, q, klen))
+    do = torch.randn((BH, q, dh), generator=gen, device=device)
+    scale = 1.0 / dh ** 0.5
+    fwd_args = ops + (count, reset_bh, scale, same_length)
+
+    def bwd_args(o, m, l):
+        return ops + (m, l, o, do, count, reset_bh, scale, same_length)
+    return (attn_ops.xl_attn_fwd_v1, attn_ops.xl_attn_fwd_v1_plain,
+            attn_ops.xl_attn_bwd_v1, attn_ops.xl_attn_bwd_v1_plain,
+            fwd_args, bwd_args, kw)
+
+
+def check_attention_bwd(variant: str, dtype, q: int, B: int, count: int,
+                        M: int, rate: float = 0.0, **kw) -> dict:
+    """The forward with dropout (o) and every backward output against the
+    plain versions on the same operands; the backward of both takes the
+    kernel forward's o, m, l."""
+    fwd, fwd_p, bwd, bwd_p, fwd_args, bwd_args, dkw = attention_bwd_case(
+        variant, dtype, q, B, count, M, rate=rate, **kw)
+    o, m, l = fwd(*fwd_args, **dkw)
+    torch.cuda.synchronize()
+    o_p, _, _ = fwd_p(*fwd_args, **dkw)
+    f32 = dtype == torch.float32
+    o_scale = float(o_p.abs().max())
+    o_err = float((o - o_p).abs().max())
+    o_tol = ATTN_TOL_F32 if f32 else ATTN_REL_TOL_BF16 * o_scale
+    args = bwd_args(o, m, l)
+    got = bwd(*args, **dkw)
+    torch.cuda.synchronize()
+    ref = bwd_p(*args, **dkw)
+    names = (("dqrw", "dqrr", "dk_cur", "dv_cur", "drk") if variant == "v2"
+             else ("dq", "dk", "dv", "dbd"))
+    rel = GRAD_REL_TOL_F32 if f32 else GRAD_REL_TOL_BF16
+    grads, ok = {}, o_err <= o_tol
+    for name, g, r in zip(names, got, ref):
+        scale = float(r.float().abs().max())
+        err = float((g.float() - r.float()).abs().max())
+        tol = rel * max(scale, 1e-6)
+        grads[name] = {"max_abs_err": err, "max_abs": scale, "tol": tol}
+        ok = ok and err <= tol
+    return {"variant": variant, "dtype": str(dtype).split(".")[-1], "q": q,
+            "B": B, "M": M, "count": count, "rate": rate,
+            "o_max_abs_err": o_err, "o_tol": o_tol, "grads": grads,
+            "max_abs_err": max([o_err] + [g["max_abs_err"]
+                                          for g in grads.values()]),
+            "ok": ok}
+
+
+class TrainCase:
+    """A seeded full-width training state, MLE step and batch (the baseline
+    model with dropout at ``dtype``; the training op-point by default).
+    ``fn`` is the step on the default route, ``fn_plain`` the step with
+    every layer's attention on the plain ``rel_attention_kv``;
+    ``steps(n, plain)`` runs n steps of one of them and returns host seconds
+    per step (ending in a device sync)."""
+
+    def __init__(self, B: int = 128, tgt: int = 128, M: int = 1024,
+                 dtype: str = "bfloat16", dropout: float = 0.1,
+                 device="cuda:0", seed: int = 2):
+        import dataclasses
+
+        from .train import optim as topt
+        from .train import step as tstep
+        cfg = dataclasses.replace(baseline_config(dtype), dropout=dropout,
+                                  dropatt=dropout)
+        params = xl.init_xl_params(cfg, seed=seed, base_init=("normal", 0.02))
+        opt = topt.FusedOptimizer(
+            "adam", 0.004, topt.make_schedule("inv_sqrt", 0.004, 100000,
+                                              0.0001, 4000), 1.0,
+            layout=topt.FlatLayout.of(params))
+        self.state = tstep.init_train_state(params, opt, cfg, 1, M, B, 1111,
+                                            device)
+        self.cfg = cfg
+        self.fn = tstep.make_mle_train_step(cfg, opt, 1, pad_id=1)
+        self.fn_plain = tstep.make_mle_train_step(cfg, opt, 1, pad_id=1,
+                                                  route="plain")
+        gen = torch.Generator().manual_seed(seed)  # the same ids on any device
+        self.data = torch.randint(2, cfg.n_token, (1, tgt, B),
+                                  generator=gen).to(device)
+        self.reset = torch.zeros((1, B), dtype=torch.bool, device=device)
+        self.tokens = B * tgt
+
+    def steps(self, n: int, plain: bool = False) -> float:
+        import time
+        fn = self.fn_plain if plain else self.fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            self.state, met = fn(self.state, self.data, self.data, self.reset)
+        float(met["loss_weighted"])  # waits for the device
+        return (time.perf_counter() - t0) / n
+
+    def flat_grad(self, data, target, reset) -> torch.Tensor:
+        """The flat fp32 gradient the next ``fn`` step takes, without
+        stepping: the mean NLL of one chunk over the current memory, for
+        targets without padding and without dropout."""
+        flat = self.state.flat.detach().clone().requires_grad_(True)
+        nll, _ = xl.forward_nll(self.state.layout.unflatten(flat), self.cfg,
+                                data[0], target[0], reset[0],
+                                self.state.mems[0])
+        nll.mean().backward()
+        return flat.grad
+
+
+# ---------------------------------------------------------------------------
 # K3: fused chunk sampling
 # ---------------------------------------------------------------------------
 

@@ -1,11 +1,10 @@
 """Relative-position multi-head attention (Transformer-XL), plain PyTorch.
 
-Counterpart of ``transformer_gan_tpu/models/attention.py`` for inference:
-``layer_norm`` and the K/V-cached ``rel_attention_kv`` (AC/BD score
-decomposition with the pad-reshape relative shift, masked softmax). It is
-the plain version of the fused attention kernels in ``ops/attention.py``.
-Dropout and the gradient contracts are training features and wait for the
-training port.
+Counterpart of ``transformer_gan_tpu/models/attention.py``: ``layer_norm``
+and the K/V-cached ``rel_attention_kv`` (AC/BD score decomposition with the
+pad-reshape relative shift, masked softmax, attention dropout drawn from an
+explicit ``torch.Generator``). It is the plain version of the fused
+attention kernels in ``ops/attention.py`` and the CPU training path.
 """
 from __future__ import annotations
 
@@ -55,14 +54,17 @@ def build_attn_mask(qlen: int, mem_len: int, count: int, same_length: bool,
 
 def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
                      attn_mask, n_head: int, d_head: int, *,
-                     softmax_dtype=torch.float32):
+                     softmax_dtype=torch.float32, dropatt: float = 0.0,
+                     generator: torch.Generator | None = None):
     """K/V-cached XL attention.
 
     w: [qlen, bsz, d_model] (pre-LN applied by the caller);
     k_mem, v_mem: [n_head, bsz, mem_len, d_head] cached memory (h-major);
     r: [klen, d_model] positional embeddings (distance klen-1 .. 0) or
     pre-projected heads [klen, n_head, d_head]; attn_mask: [rows, qlen, klen]
-    bool, True = masked.
+    bool, True = masked. With a ``generator``, attention probabilities are
+    kept where a uniform draw is below 1 - dropatt and scaled by
+    1 / (1 - dropatt) (the JAX package's bernoulli keep).
     Returns (attn_vec [qlen, bsz, n_head*d_head], k_cur [n_head, bsz, qlen,
     d_head], v_cur likewise).
     """
@@ -93,6 +95,10 @@ def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
     score = score.masked_fill(attn_mask[:, None],
                               torch.finfo(softmax_dtype).min)
     prob = torch.softmax(score, dim=3)
+    if generator is not None and dropatt > 0.0:
+        keep = torch.rand(prob.shape, generator=generator,
+                          device=prob.device) < 1.0 - dropatt
+        prob = torch.where(keep, prob / (1.0 - dropatt), 0.0)
     ctx = prob.to(v.dtype) @ v                            # [b, h, q, d]
     attn_vec = ctx.permute(2, 0, 1, 3).reshape(qlen, bsz, n_head * d_head)
     return attn_vec, k_cur.transpose(0, 1), v_cur.transpose(0, 1)

@@ -1,17 +1,21 @@
-"""Transformer-XL language model for inference, as functions on tensors.
+"""Transformer-XL language model, as functions on tensors.
 
-Counterpart of ``transformer_gan_tpu/models/xl.py`` for the generation path:
-the K/V-cached memory layout (``cache_kv``), the batch forward used to prime
-memory, the logits head and the two-level chunked decode (big read-only K/V
-cache plus a per-chunk staging ring) that the fused sampling kernel runs.
+Counterpart of ``transformer_gan_tpu/models/xl.py`` for MLE training and
+generation: the K/V-cached memory layout (``cache_kv``), the batch forward
+(training with dropout and per-row memory resets, or priming memory for
+generation), the NLL and logits heads, and the two-level chunked decode
+(big read-only K/V cache plus a per-chunk staging ring) that the fused
+sampling kernel runs.
 
 Parameters are a flat ``dict[str, Tensor]`` of fp32 master weights with the
 JAX tree's names (``word_emb``, ``layers.3.qkv_w``, ...); see ``convert.py``.
-Whether a fused attention kernel runs follows the device of the tensors:
-CUDA tensors go to the kernels, CPU tensors to the plain versions.
+Which attention runs follows :func:`attention_route`: CUDA windows of at
+least ``FUSED_MIN_QLEN`` tokens take the fused kernels, CPU tensors the plain
+path; the forwards' ``route`` argument overrides it. Dropout draws from
+explicit generators (see :func:`xl_forward`).
 
-Not ported yet: the raw-hidden memory path (``cache_kv=False``), dropout
-and training, note-status inputs, soft one-hot inputs and the gumbel heads.
+Not ported yet: the raw-hidden memory path (``cache_kv=False``), remat,
+note-status inputs, soft one-hot inputs and the gumbel heads.
 """
 from __future__ import annotations
 
@@ -21,11 +25,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.attention import rel_attention_kv_fused_v2
+from ..ops.attention import rel_attention_kv_fused, rel_attention_kv_fused_v2
 from .attention import build_attn_mask, layer_norm, rel_attention_kv
 
-# Prime windows at least this long take the fused attention kernel on CUDA
-# (the JAX package's qlen >= 8 rule for its fused branch).
+# Windows at least this long take the fused attention kernels on CUDA (the
+# JAX package's qlen >= 8 rule for its fused branch).
 FUSED_MIN_QLEN = 8
 
 
@@ -195,28 +199,56 @@ def embed_input(params, cfg: XLConfig, inp: torch.Tensor) -> torch.Tensor:
     return emb_w[inp] * (cfg.d_model ** 0.5)
 
 
+def attention_route(core_out: torch.Tensor, mem_len: int) -> str:
+    """Which attention a layer runs: "v2" (K1f/K1b) or "v1" (K2f/K2b) on
+    CUDA windows of at least ``FUSED_MIN_QLEN`` tokens, by whether there is
+    memory (the JAX package's ``supports_v2`` without its TPU alignment
+    gates), else "plain"."""
+    if core_out.is_cuda and core_out.shape[0] >= FUSED_MIN_QLEN:
+        return "v2" if mem_len > 0 else "v1"
+    return "plain"
+
+
+def _dropout(x: torch.Tensor, rate: float, gen) -> torch.Tensor:
+    """Keep where a uniform draw is below 1 - rate, scaled by 1 / (1 - rate)
+    (the JAX package's bernoulli keep); identity without a generator."""
+    if gen is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def decoder_layer(layer, cfg: XLConfig, core_out, mems_i, pos_emb,
                   r_w_bias, r_r_bias, attn_mask, attn_count: int,
-                  same_length: bool = False):
-    """One decoder layer (attention + position-wise FF). Windows of at least
-    ``FUSED_MIN_QLEN`` tokens on CUDA take the fused attention kernel."""
+                  same_length: bool = False, reset=None, gen=None,
+                  attn_seed: int | None = None, route: str | None = None):
+    """One decoder layer (attention + position-wise FF). ``gen`` (a
+    generator on the activations' device) turns dropout on; the fused
+    kernels draw attention dropout from ``attn_seed``, the plain path from
+    ``gen``. ``route`` ("plain", "v2", "v1") overrides
+    :func:`attention_route`."""
     cd = cfg.cdtype
     if cfg.pre_lnorm:
         w_in = layer_norm(core_out, layer["attn_ln_scale"],
                           layer["attn_ln_bias"])
     else:
         w_in = core_out
-    if core_out.is_cuda and core_out.shape[0] >= FUSED_MIN_QLEN:
-        attn_vec, k_cur, v_cur = rel_attention_kv_fused_v2(
-            w_in, mems_i[0], mems_i[1], pos_emb, layer["qkv_w"].to(cd),
-            layer["r_w"].to(cd), r_w_bias, r_r_bias, attn_count, None,
-            cfg.n_head, cfg.d_head, same_length=same_length)
-    else:
+    route = route or attention_route(core_out, mems_i.shape[-2])
+    if route == "plain":
         attn_vec, k_cur, v_cur = rel_attention_kv(
             w_in, mems_i[0], mems_i[1], pos_emb, layer["qkv_w"].to(cd),
             layer["r_w"].to(cd), r_w_bias, r_r_bias, attn_mask,
-            cfg.n_head, cfg.d_head, softmax_dtype=cfg.sdtype)
-    attn_out = attn_vec @ layer["o_w"].to(cd)
+            cfg.n_head, cfg.d_head, softmax_dtype=cfg.sdtype,
+            dropatt=cfg.dropatt, generator=gen)
+    else:
+        fused = (rel_attention_kv_fused_v2 if route == "v2"
+                 else rel_attention_kv_fused)
+        attn_vec, k_cur, v_cur = fused(
+            w_in, mems_i[0], mems_i[1], pos_emb, layer["qkv_w"].to(cd),
+            layer["r_w"].to(cd), r_w_bias, r_r_bias, attn_count, reset,
+            cfg.n_head, cfg.d_head, same_length=same_length,
+            dropatt=cfg.dropatt, seed=attn_seed if gen is not None else None)
+    attn_out = _dropout(attn_vec @ layer["o_w"].to(cd), cfg.dropout, gen)
     if cfg.pre_lnorm:
         out = core_out + attn_out
         ff_in = layer_norm(out, layer["ff_ln_scale"], layer["ff_ln_bias"])
@@ -225,7 +257,9 @@ def decoder_layer(layer, cfg: XLConfig, core_out, mems_i, pos_emb,
                          layer["attn_ln_bias"])
         ff_in = out
     h = torch.relu(ff_in @ layer["ff_w1"].to(cd) + layer["ff_b1"].to(cd))
-    h = h @ layer["ff_w2"].to(cd) + layer["ff_b2"].to(cd)
+    h = _dropout(h, cfg.dropout, gen)
+    h = _dropout(h @ layer["ff_w2"].to(cd) + layer["ff_b2"].to(cd),
+                 cfg.dropout, gen)
     if cfg.pre_lnorm:
         return out + h, (k_cur, v_cur)
     return layer_norm(out + h, layer["ff_ln_scale"],
@@ -236,21 +270,40 @@ def decoder_layer(layer, cfg: XLConfig, core_out, mems_i, pos_emb,
 # Core forward
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def xl_forward(params, cfg: XLConfig, inp: torch.Tensor, mems: XLMems, *,
-               same_length: bool = False, pos_emb=None):
-    """Run the decoder stack over ids [q, b]. Returns (core_out [q, b, d],
-    new_mems): the ring keeps the newest mem_len K/V slots."""
+def xl_forward(params, cfg: XLConfig, inp: torch.Tensor, mems: XLMems,
+               reset_mems=None, *, same_length: bool = False, pos_emb=None,
+               generator: torch.Generator | None = None,
+               route: str | None = None):
+    """Run the decoder stack over ids [q, b]; ``reset_mems`` [b] bool masks
+    the whole memory of those rows. Returns (core_out [q, b, d], new_mems):
+    the ring keeps the newest mem_len K/V slots, detached.
+
+    Training: ``generator``, a CPU generator (the step's), turns dropout on.
+    It draws one seed per layer for the fused kernels' attention dropout and
+    one that seeds a generator on the activations' device for the other
+    dropout masks (and the plain path's attention dropout). Without it the
+    forward is the inference forward; callers that need no gradient wrap it
+    in ``torch.no_grad()``. ``route`` forces every layer's attention:
+    "plain" (``rel_attention_kv``), "v2" or "v1" (the fused contracts); None
+    follows :func:`attention_route`."""
     _require_cache_kv(cfg)
+    if route not in (None, "plain", "v2", "v1"):
+        raise ValueError(f"unknown attention route {route!r}")
     qlen = inp.shape[0]
     mem_len = mems.hids.shape[4]
     cd = cfg.cdtype
-    core_out = embed_input(params, cfg, inp)
+    gen, seeds = None, [None] * cfg.n_layer
+    if generator is not None:
+        seeds = torch.randint(0, 2 ** 31 - 1, (cfg.n_layer + 1,),
+                              generator=generator).tolist()
+        gen = torch.Generator(device=inp.device).manual_seed(seeds.pop())
+    core_out = _dropout(embed_input(params, cfg, inp), cfg.dropout, gen)
     attn_mask = build_attn_mask(qlen, mem_len, mems.count, same_length,
-                                device=inp.device)
+                                reset_mems, device=inp.device)
     if pos_emb is None:
         pos_emb = positional_embedding(cfg, mem_len + qlen,
                                        inp.device).to(cd)
+    pos_emb = _dropout(pos_emb, cfg.dropout, gen)
     r_w_bias = params["r_w_bias"].to(cd)
     r_r_bias = params["r_r_bias"].to(cd)
 
@@ -258,12 +311,14 @@ def xl_forward(params, cfg: XLConfig, inp: torch.Tensor, mems: XLMems, *,
     for i in range(cfg.n_layer):
         core_out, kv = decoder_layer(
             layer_params(params, i), cfg, core_out, mems.hids[i].to(cd),
-            pos_emb, r_w_bias, r_r_bias, attn_mask, mems.count, same_length)
+            pos_emb, r_w_bias, r_r_bias, attn_mask, mems.count, same_length,
+            reset_mems, gen, seeds[i], route)
         kvs.append(kv)
+    core_out = _dropout(core_out, cfg.dropout, gen)
 
     if mem_len == 0:
         return core_out, mems
-    stacked = torch.stack([torch.stack(kv) for kv in kvs]).to(
+    stacked = torch.stack([torch.stack(kv) for kv in kvs]).detach().to(
         mems.hids.dtype)                                  # [L, 2, h, b, q, dh]
     new_hids = torch.cat([mems.hids, stacked], dim=4)[..., -mem_len:, :]
     return core_out, XLMems(hids=new_hids.contiguous(),
@@ -275,6 +330,21 @@ def compute_logits(params, cfg: XLConfig, hidden: torch.Tensor) -> torch.Tensor:
     a separate ``crit_w``."""
     w = params.get("crit_w", params["word_emb"]).to(cfg.cdtype)
     return hidden @ w.T + params["crit_bias"].to(cfg.cdtype)
+
+
+def forward_nll(params, cfg: XLConfig, data: torch.Tensor,
+                target: torch.Tensor, reset_mems, mems: XLMems, *,
+                same_length: bool = False,
+                generator: torch.Generator | None = None,
+                route: str | None = None):
+    """Per-token NLL head with an fp32 log-softmax. Returns (nll [q, b] fp32,
+    new_mems); ``generator`` and ``route`` as :func:`xl_forward`."""
+    hidden, new_mems = xl_forward(params, cfg, data, mems, reset_mems,
+                                  same_length=same_length,
+                                  generator=generator, route=route)
+    logp = torch.log_softmax(compute_logits(params, cfg, hidden).float(),
+                             dim=-1)
+    return -torch.gather(logp, -1, target[..., None])[..., 0], new_mems
 
 
 def forward_generate(params, cfg: XLConfig, data: torch.Tensor, mems: XLMems,
