@@ -11,7 +11,9 @@ Phases, one line each; any failure exits non-zero:
    model's full width (L 6, H 10, d 500, DI 1000, V 310): the attention
    forwards at M 4146, the attention backwards (K1b, K2b) and the forwards
    with dropout at q 128, M 0 and 1024, B 1, 8 and the training batch 128,
-   and the fused sampler;
+   K1f / K1b at the GAN config's MLE shape (q 512, M 128, B 64), the
+   same_length window without memory, the fused sampler (K3), the GAN's
+   gumbel sampler (K4, K5) and its reverse chain (K6, K7) at M 64;
 4. main path, generation: ``transformer_gan_torch.cli.generate.main`` on
    seeded full-width bf16 parameters, unconditional (8 lanes) and
    conditional with the debug incremental == batch memory check, with
@@ -23,8 +25,16 @@ Phases, one line each; any failure exits non-zero:
    TRAIN.mem_length 0 with random_crop (K2f, K2b), the generation CLI on
    the trained run directory, and two fp32 full-width training steps of the
    kernel path against the CPU plain path;
-6. numbers: us/token and events/s for generation, training tokens/s, and
-   the attention kernels' time against their plain versions.
+6. main path, GAN: ``transformer_gan_torch.cli.train`` on
+   experiment_cnn.yml (batch 64, warm start from the training run) with a
+   dis and a gen phase at steps 1 and 2 and a restart (K4, K6), a second run
+   on the per-token sampler and the recomputing chain (K5, K7), and one
+   fp32 dis and gen update of the kernel path on the card against the plain
+   path on the CPU;
+7. numbers: us/token and events/s for generation, training tokens/s, the
+   GAN phases' ms and sampled tokens/s, and every kernel's time against its
+   plain version, its least time on the card (bound) and, where one
+   PyTorch call computes the same function, that call's time.
 
 The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -107,6 +117,7 @@ def main() -> None:
           tol={"float32": kc.ATTN_TOL_F32,
                "bfloat16": f"{kc.ATTN_REL_TOL_BF16} * max|o|"})
     bwd_errs = check_attention_bwd(kc)
+    gan_attn = check_gan_attention(kc)
     for dtype in ("float32", "bfloat16"):
         for B in (1, 8):
             for count in (0, 100, kc.MEM_LEN):
@@ -119,6 +130,8 @@ def main() -> None:
                     k: res[k] for k in ("dtype", "B", "count", "ok")},
                     chunks=[{k: c[k] for k in c if k != "count"}
                             for c in res["chunks"]])
+    dec_errs = check_decode(kc)
+    chain_errs = check_chain(kc)
     torch.cuda.synchronize()
 
     # 4. main path, generation, through the CLI
@@ -129,19 +142,27 @@ def main() -> None:
         fail("kernel path and CPU plain path disagree on the reference slice")
 
     # 5. main path, training, through the CLI
-    train_launches = run_train_path(_native)
+    train_launches, mle_run = run_train_path(_native)
     train_ref = check_train_reference()
     phase("main_path.train_reference", **train_ref)
     if not train_ref["ok"]:
         fail("kernel path and CPU plain path disagree on the training step")
 
-    # 6. numbers
+    # 6. main path, GAN, through the CLI
+    gan_launches = run_gan_path(_native, mle_run)
+    gan_ref = kc.check_gan_reference()
+    phase("main_path.gan_reference", **gan_ref)
+    if not gan_ref["ok"]:
+        fail("kernel path and CPU plain path disagree on the GAN updates")
+
+    # 7. numbers
     numbers = measure(kc, card)
     numbers.update(measure_train(kc, card))
-    launches = {k: summaries["launches"][k] + train_launches[k]
-                for k in _native.LAUNCHES}
-    by_path = {k: {"generate": summaries["launches"][k],
-                   "train": train_launches[k]} for k in _native.LAUNCHES}
+    numbers.update(measure_gan(kc, card))
+    paths = {"generate": summaries["launches"], "train": train_launches,
+             "gan": gan_launches}
+    launches = {k: sum(p[k] for p in paths.values()) for k in _native.LAUNCHES}
+    by_path = {k: {n: p[k] for n, p in paths.items()} for k in _native.LAUNCHES}
 
     def entry(name, source, replaces, key, f32, bf16, num):
         return {"name": name, "route": "cuda",
@@ -149,39 +170,58 @@ def main() -> None:
                 "replaces": replaces, "launches": launches[key],
                 "launches_by_path": by_path[key], "max_abs_err": f32,
                 "max_abs_err_bf16": bf16, "ms": num["ms"],
-                "plain_ms": num["plain_ms"], "shape": num.get("shape")}
+                "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
+                "bound_by": num["bound_by"],
+                "library_ms": num.get("library_ms"),
+                "library_call": num.get("library_call"),
+                "shape": num.get("shape")}
 
+    v2f = [errs["v2"], bwd_errs["fwd_v2"], gan_attn["fwd_v2"]]
+    v1f = [errs["v1"], bwd_errs["fwd_v1"], gan_attn["fwd_v1"]]
     kernels = [
         entry("xl_attn_fwd_v2 (K1f)", "attention.cu",
               "transformer_gan_tpu/ops/pallas_attention_v2.py:111",
-              "xl_attn_fwd_v2", max(errs["v2"]["float32"],
-                                    bwd_errs["fwd_v2"]["float32"]),
-              max(errs["v2"]["bfloat16"], bwd_errs["fwd_v2"]["bfloat16"]),
-              numbers["v2"]),
+              "xl_attn_fwd_v2", *worst(v2f), numbers["v2"]),
         entry("xl_attn_bwd_v2 (K1b)", "attention_bwd.cu",
               "transformer_gan_tpu/ops/pallas_attention_v2.py:166",
-              "xl_attn_bwd_v2", bwd_errs["v2"]["float32"],
-              bwd_errs["v2"]["bfloat16"], numbers["bwd_v2"]),
+              "xl_attn_bwd_v2", *worst([bwd_errs["v2"], gan_attn["v2"]]),
+              numbers["bwd_v2"]),
         entry("xl_attn_fwd_v1 (K2f)", "attention.cu",
               "transformer_gan_tpu/ops/pallas_attention.py:62",
-              "xl_attn_fwd_v1", max(errs["v1"]["float32"],
-                                    bwd_errs["fwd_v1"]["float32"]),
-              max(errs["v1"]["bfloat16"], bwd_errs["fwd_v1"]["bfloat16"]),
-              numbers["v1"]),
+              "xl_attn_fwd_v1", *worst(v1f), numbers["v1"]),
         entry("xl_attn_bwd_v1 (K2b)", "attention_bwd.cu",
               "transformer_gan_tpu/ops/pallas_attention.py:98",
-              "xl_attn_bwd_v1", bwd_errs["v1"]["float32"],
-              bwd_errs["v1"]["bfloat16"], numbers["bwd_v1"]),
+              "xl_attn_bwd_v1", *worst([bwd_errs["v1"], gan_attn["v1"]]),
+              numbers["bwd_v1"]),
         entry("generate_chunk (K3)", "generate.cu",
               "transformer_gan_tpu/ops/pallas_generate.py:105",
               "generate_chunk", errs["gen"]["float32"],
               errs["gen"]["bfloat16"], numbers["gen"]),
+        entry("decode_chunk (K4)", "decode.cu",
+              "transformer_gan_tpu/ops/pallas_decode.py:359",
+              "decode_chunk", *worst([dec_errs["K4"]]), numbers["K4"]),
+        entry("decode_step (K5)", "decode.cu",
+              "transformer_gan_tpu/ops/pallas_decode.py:82",
+              "decode_step", *worst([dec_errs["K5"]]), numbers["K5"]),
+        entry("chain_bwd_res (K6)", "chain_bwd.cu",
+              "transformer_gan_tpu/ops/pallas_chain_bwd.py:301",
+              "chain_bwd_res", *worst([chain_errs["K6"]]), numbers["K6"]),
+        entry("chain_bwd_recompute (K7)", "chain_bwd.cu",
+              "transformer_gan_tpu/ops/pallas_chain_bwd.py:103",
+              "chain_bwd_recompute", *worst([chain_errs["K7"]]),
+              numbers["K7"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def worst(dicts) -> tuple:
+    """(fp32, bf16) max abs errors over several checks' {dtype: err}."""
+    return tuple(max(d.get(k, 0.0) for d in dicts)
+                 for k in ("float32", "bfloat16"))
 
 
 def run_main_path(_native) -> dict:
@@ -305,17 +345,38 @@ def measure(kc, card: str) -> dict:
                 "plain_events_per_s": B * 32 / (plain_ms / 1000)}
         phase("numbers.generate", **line)
         if B == 1:
-            res["gen"] = {"ms": ms, "plain_ms": plain_ms}
+            bound, by = kc.bound_ms(*kc.sampler_work(32, 1, kc.MEM_LEN,
+                                                     kc.MEM_LEN))
+            res["gen"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by, "library_ms": None,
+                          "library_call": "none computes top-k sampling "
+                          "through the decoder",
+                          "shape": f"32 tokens, B 1, M {kc.MEM_LEN}, bf16"}
         del case
     for variant in ("v2", "v1"):
         kernel, plain, args = kc.attention_case(variant, torch.bfloat16, 128,
                                                 1, kc.MEM_LEN)
         ms, plain_ms = kc.time_in_turns(lambda: kernel(*args),
                                         lambda: plain(*args), iters=20)
-        res[variant] = {"ms": ms, "plain_ms": plain_ms,
+        bound, by = kc.bound_ms(*kc.attention_work(
+            variant, 128, 1, kc.MEM_LEN, kc.MEM_LEN, True))
+        res[variant] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by,
                         "shape": f"q 128, B 1, M {kc.MEM_LEN}, bf16"}
+        if variant == "v1":
+            fwd, _ = kc.sdpa_case(128, 1, kc.MEM_LEN, kc.MEM_LEN, True)
+            res[variant]["library_ms"] = kc.time_ms(fwd, 20)
+            res[variant]["library_call"] = (
+                "scaled_dot_product_attention(q + r_w_bias, k, v, attn_mask="
+                "BD * scale + mask), forward")
+        else:
+            res[variant]["library_ms"] = None
+            res[variant]["library_call"] = (
+                "none: the position term comes from rk inside the kernel")
         phase(f"numbers.attention_{variant}", q=128, B=1, M=kc.MEM_LEN,
-              dtype="bfloat16", card=card, kernel_ms=ms, plain_ms=plain_ms)
+              dtype="bfloat16", card=card, kernel_ms=ms, plain_ms=plain_ms,
+              bound_ms=bound, bound_by=by,
+              library_ms=res[variant]["library_ms"])
     return res
 
 
@@ -416,14 +477,18 @@ def write_random_corpus(data_dir: str, vocab_path: str, n_train: int,
                     rng.randint(2, len(vocab), size).astype(np.int32))
 
 
-def _train_cfg_file(work: str, name: str, **train) -> str:
-    """experiment_baseline.yml with TRAIN overrides, written beside the
-    corpus."""
+def _train_cfg_file(work: str, name: str, base: str = "experiment_baseline.yml",
+                    **groups) -> str:
+    """A shipped training config with overrides per group (TRAIN when given
+    as plain keys), written beside the corpus."""
     import yaml
-    with open(os.path.join(ROOT, "training_config",
-                           "experiment_baseline.yml")) as f:
+    with open(os.path.join(ROOT, "training_config", base)) as f:
         cfg = yaml.safe_load(f)
-    cfg["TRAIN"].update(train)
+    for key, value in groups.items():
+        if isinstance(value, dict):
+            cfg.setdefault(key, {}).update(value)
+        else:
+            cfg["TRAIN"][key] = value
     path = os.path.join(work, name)
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -445,11 +510,12 @@ def _train_log(run_dir: str) -> dict:
     return {"train": steps, "val_nll": evals, "test_nll": tests}
 
 
-def run_train_path(_native) -> dict:
+def run_train_path(_native) -> tuple[dict, str]:
     """The training CLI on the baseline config over a seeded random corpus:
     8 steps at mem 1024 (K1f, K1b), 2 steps at mem 0 with random_crop (K2f,
     K2b), then the generation CLI on the trained run directory. Returns the
-    launch counts summed over the three runs."""
+    launch counts summed over the three runs and the mem-1024 run's
+    directory."""
     import math
     from transformer_gan_torch.cli import generate as gcli
     from transformer_gan_torch.cli import train as tcli
@@ -519,7 +585,7 @@ def run_train_path(_native) -> dict:
         total[k] += launches[k]
     phase("main_path.train_generate", files=len(summary["files"]),
           tokens=summary["tokens"], launches=launches)
-    return total
+    return total, os.path.join(ROOT, runs["mem1024"]["run_dir"])
 
 
 # Card kernel path vs CPU plain path, two fp32 steps (check_train_reference).
@@ -622,12 +688,25 @@ def measure_train(kc, card: str) -> dict:
         b_ms = kc.time_in_turns(lambda: bwd(*args, **kw),
                                 lambda: bwd_p(*args, **kw), iters=3)
         shape = f"q {tgt}, B {B}, M {M}, bf16, dropatt 0.1"
+        bound, by = kc.bound_ms(*kc.attention_work(variant, tgt, B, M, M,
+                                                   False, backward=True))
         res["bwd_" + variant] = {"ms": b_ms[0], "plain_ms": b_ms[1],
-                                 "shape": shape}
+                                 "bound_ms": bound, "bound_by": by,
+                                 "library_ms": None, "shape": shape,
+                                 "library_call": "none: the position term "
+                                 "comes from rk inside the kernel"}
+        lib = None
+        if variant == "v1":
+            _, fwd_bwd = kc.sdpa_case(tgt, B, M, M, False)
+            lib = kc.time_ms(fwd_bwd, 3)
+            res["bwd_v1"].update(library_ms=lib, library_call=(
+                "scaled_dot_product_attention forward + backward at dropout "
+                "0 (against K2f + K2b's fwd_bwd_ms)"))
         phase(f"numbers.train_attention_{variant}", q=tgt, B=B, M=M,
               dtype="bfloat16", card=card, fwd_bwd_ms=pair[0],
               fwd_bwd_plain_ms=pair[1], bwd_ms=b_ms[0],
-              bwd_plain_ms=b_ms[1])
+              bwd_plain_ms=b_ms[1], bwd_bound_ms=bound, bound_by=by,
+              sdpa_fwd_bwd_ms=lib)
         del o, m, l, args
     torch.cuda.empty_cache()
 
@@ -644,6 +723,282 @@ def measure_train(kc, card: str) -> dict:
           dropout=0.1, card=card, kernel_step_s=k_s, plain_step_s=p_s,
           kernel_tokens_per_s=tokens / k_s, plain_tokens_per_s=tokens / p_s,
           turns_s=turns, peak_gib=peak)
+    return res
+
+
+
+# ---------------------------------------------------------------------------
+# GAN
+# ---------------------------------------------------------------------------
+
+def check_gan_attention(kc) -> dict:
+    """K1f / K1b at the GAN config's MLE shape (q 512, M 128 full, B 64,
+    dropatt 0.1 as trained) and the same_length window without memory,
+    where every key of a row is masked (K1f/K1b and K2f/K2b, B 8)."""
+    errs = {k: {} for k in ("v2", "v1", "fwd_v2", "fwd_v1")}
+
+    def keep(variant, res):
+        key = res["dtype"]
+        g = max(v["max_abs_err"] for v in res["grads"].values())
+        errs[variant][key] = max(errs[variant].get(key, 0.0), g)
+        errs["fwd_" + variant][key] = max(errs["fwd_" + variant].get(key, 0.0),
+                                          res["o_max_abs_err"])
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        res = kc.check_attention_bwd("v2", dtype, 512, 64, 128, 128, rate=0.1)
+        cases.append({k: res[k] for k in ("variant", "dtype", "q", "B", "M",
+                                          "max_abs_err", "ok")})
+        if not res["ok"]:
+            fail(f"K1f / K1b disagree at q 512, M 128, B 64: {res}")
+        keep("v2", res)
+        del res
+        torch.cuda.empty_cache()
+        for variant in ("v2", "v1"):
+            for q in (128, 37):
+                fwd = kc.check_attention(variant, dtype, q, 8, 0, M=0,
+                                         same_length=True)
+                res = kc.check_attention_bwd(variant, dtype, q, 8, 0, 0,
+                                             same_length=True)
+                cases.append({"variant": variant, "dtype": res["dtype"],
+                              "q": q, "M": 0, "same_length": True,
+                              "fwd_err": fwd["max_abs_err"],
+                              "max_abs_err": res["max_abs_err"],
+                              "ok": fwd["ok"] and res["ok"]})
+                if not (fwd["ok"] and res["ok"]):
+                    fail(f"same_length M 0 window disagrees: {fwd} {res}")
+                keep(variant, res)
+    phase("kernels.attention_gan", cases=cases)
+    return errs
+
+
+def check_decode(kc) -> dict:
+    """K4 and K5 against their plain versions at full width, M 64: fp32 and
+    bf16, B 8 and 64, count 0, 30 and 64, chunks of 32 then 27 tokens."""
+    errs = {"K4": {}, "K5": {}}
+    for dtype in ("float32", "bfloat16"):
+        for B in (8, 64):
+            for count in (0, 30, kc.GAN_MEM):
+                for step in (False, True):
+                    res = kc.check_decode(dtype, B, count, step=step)
+                    if not res["ok"]:
+                        fail(f"GAN sampler kernel disagrees: {res}")
+                    key = res["kernel"]
+                    errs[key][dtype] = max(errs[key].get(dtype, 0.0),
+                                           res["max_abs_err"])
+                    phase("kernels.decode", **{
+                        k: res[k] for k in ("kernel", "dtype", "B", "count",
+                                            "ok", "max_abs_err")},
+                        chunks=[{k: c[k] for k in c
+                                 if k != "first_divergence"}
+                                for c in res["chunks"]])
+    return errs
+
+
+def check_chain(kc) -> dict:
+    """K6 and K7 against the plain chain at full width: n 59, M 64, fp32
+    and bf16, B 8 and 64, count 0 and 64, T 1.0 and 0.5."""
+    errs = {"K6": {}, "K7": {}}
+    for dtype in ("float32", "bfloat16"):
+        for B in (8, 64):
+            for count in (0, kc.GAN_MEM):
+                for T in (1.0, 0.5):
+                    res = kc.check_chain(dtype, B, count, T)
+                    phase("kernels.chain_bwd", **res)
+                    if not res["ok"]:
+                        fail(f"chain backward kernel disagrees: {res}")
+                    for key in ("K6", "K7"):
+                        errs[key][dtype] = max(errs[key].get(dtype, 0.0),
+                                               res[key])
+                    torch.cuda.empty_cache()
+    return errs
+
+
+B_GAN = 64
+GAN_OVERRIDES = {"batch_size": B_GAN, "max_step": 3, "log_interval": 1,
+                 "eval_interval": 3}
+
+
+def _gan_log(run_dir: str) -> list:
+    import re
+    with open(os.path.join(run_dir, "train_rank0.log")) as f:
+        text = f.read()
+    return [{"step": int(m[0]), "nll": float(m[1]), "gen_loss": float(m[2]),
+             "dis_loss": float(m[3])}
+            for m in re.findall(r"Train Step (\d+)/\d+, .*?nll=([\d.]+), .*?"
+                                r"gen_loss=([-\d.]+), dis_loss=([-\d.]+)", text)]
+
+
+def run_gan_path(_native, mle_run: str) -> dict:
+    """The training CLI on experiment_cnn.yml (batch 64, warm start from the
+    MLE run, dis and gen phases at steps 1 and 2), then --restart for a
+    third (K4, K6); a second run on the per-token sampler and the
+    recomputing chain (K5, K7). Returns the launch counts of the runs."""
+    from transformer_gan_torch.cli import train as tcli
+    from transformer_gan_torch.train import checkpoint as ckpt
+    work = os.path.join(ROOT, "build", "chip_smoke", "gan")
+    os.makedirs(work, exist_ok=True)
+    data = os.path.join(ROOT, "build", "chip_smoke", "train", "data")
+    warm = os.path.join(mle_run, "checkpoint_last")
+    disc = {"dis_loss_freq": 1, "gen_loss_freq": 1}
+    total = dict.fromkeys(_native.LAUNCHES, 0)
+    runs = {}
+    for name, tpu, env, need in (
+            ("chunk_res", {}, None, ("decode_chunk", "chain_bwd_res",
+                                     "xl_attn_fwd_v2", "xl_attn_bwd_v2")),
+            ("step_recompute", {"gan_chain_bwd": "kernel_recompute"}, "0",
+             ("decode_step", "chain_bwd_recompute"))):
+        cfg = _train_cfg_file(work, f"{name}.yml", "experiment_cnn.yml",
+                              **GAN_OVERRIDES, load_from_previous=warm,
+                              DISCRIMINATOR=disc, TPU=tpu)
+        if env is not None:
+            os.environ["TGTPU_CHUNK_SAMPLER"] = env
+        torch.cuda.synchronize()
+        _native.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            tr = tcli.main(["--data_dir", data, "--cfg", cfg, "--work_dir",
+                            os.path.join(work, name)])
+            launches = dict(_native.LAUNCHES)
+            restart = None
+            if name == "chunk_res":
+                counts = (tr.gan.dis_opt_state.count,
+                          tr.gan.gen_opt_state.count)
+                cfg4 = _train_cfg_file(work, f"{name}_4.yml",
+                                       "experiment_cnn.yml",
+                                       **{**GAN_OVERRIDES, "max_step": 4},
+                                       load_from_previous=warm,
+                                       DISCRIMINATOR=disc, TPU=tpu)
+                _native.reset_launches()
+                again = tcli.main(["--data_dir", data, "--cfg", cfg4,
+                                   "--work_dir", tr.work_dir, "--restart"])
+                restart = {"steps": again.train_step_num,
+                           "dis_updates": [counts[0],
+                                           again.gan.dis_opt_state.count],
+                           "gen_updates": [counts[1],
+                                           again.gan.gen_opt_state.count]}
+                if (again.gan.gen_opt_state.count != counts[1] + 1
+                        or again.gan.dis_opt_state.count
+                        != counts[0] + tr.cfg.DISCRIMINATOR.dis_steps):
+                    fail(f"--restart lost the GAN state: {restart}")
+                launches = {k: launches[k] + _native.LAUNCHES[k]
+                            for k in launches}
+        finally:
+            os.environ.pop("TGTPU_CHUNK_SAMPLER", None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k in need:
+            if launches[k] == 0:
+                fail(f"the GAN run {name} never launched {k}")
+        log = _gan_log(tr.work_dir)
+        if (len(log) < 3 or not all(abs(x["gen_loss"]) > 0 and abs(x["dis_loss"])
+                                    > 0 for x in log[1:])):
+            fail(f"the GAN run {name} logged no gen / dis losses: {log}")
+        if ckpt.load_gan_payload(tr.work_dir, "checkpoint_last") is None:
+            fail(f"the GAN run {name} checkpointed no GAN state")
+        runs[name] = {"run_dir": os.path.relpath(tr.work_dir, ROOT),
+                      "steps": tr.train_step_num, "wall_s": wall,
+                      "launches": launches, "log": log, "restart": restart}
+        for k in total:
+            total[k] += launches[k]
+    phase("main_path.gan", overrides=GAN_OVERRIDES, discriminator=disc,
+          warm_start=os.path.relpath(warm, ROOT), **runs)
+    return total
+
+
+def measure_gan(kc, card: str) -> dict:
+    """bf16 at the GAN op-point (B 64, M 64, 59 sampled tokens): the dis
+    phase (5 updates) and the gen phase in ms, and sampled tokens/s, of the
+    kernel path against the plain path (the sampler and chain plain
+    versions on the card) in turns; then each of K4, K5, K6 and K7 per
+    launch against its plain version, beside its bound."""
+    from transformer_gan_torch.models import gan as gan_mod
+    res = {}
+    cases = {r: kc.GanCase("bfloat16", B_GAN, "cuda", route=r, dis_steps=5,
+                           host_draws=False)
+             for r in ("plain", "kernel")}
+
+    def phase_s(route, which):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(cases[route].phases, which + "_phase")(1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def sample_s(route):
+        ph = cases[route].phases
+        data = ph._next_dis_batch()[0]
+        draws = ph._draws()
+        noise = [draws.gumbel(c, n, B_GAN, 310)
+                 for c, n in enumerate(ph.gcfg.chunk_lengths())]
+        params = cases[route].state.params()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gan_mod._sample_fake_chunks_fused(params, ph.xcfg, ph.gcfg, data, noise)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for route in ("plain", "kernel"):       # warm-up
+        phase_s(route, "dis"), phase_s(route, "gen"), sample_s(route)
+    timed = {}
+    for which, fn in (("dis", phase_s), ("gen", phase_s), ("sample", None)):
+        f = (lambda r: phase_s(r, which)) if fn else sample_s
+        turns = [f("plain"), f("kernel"), f("kernel"), f("plain")]
+        timed[which] = {"kernel_ms": (turns[1] + turns[2]) / 2 * 1e3,
+                        "plain_ms": (turns[0] + turns[3]) / 2 * 1e3,
+                        "turns_s": turns}
+    toks = cases["kernel"].tokens_per_pass()
+    timed["sample"].update(
+        tokens=toks,
+        kernel_tokens_per_s=toks / (timed["sample"]["kernel_ms"] / 1e3),
+        plain_tokens_per_s=toks / (timed["sample"]["plain_ms"] / 1e3))
+    phase("numbers.gan", B=B_GAN, M=kc.GAN_MEM, dtype="bfloat16", card=card,
+          dis_phase=timed["dis"], gen_phase=timed["gen"],
+          sampling=timed["sample"])
+    del cases
+    torch.cuda.empty_cache()
+
+    case = kc.DecodeCase("bfloat16", B_GAN, kc.GAN_MEM)
+    g = case.noise(32)
+    ms, plain_ms = kc.time_in_turns(lambda: case.run(32, g),
+                                    lambda: case.run(32, g, plain=True), 5)
+    bound, by = kc.bound_ms(*kc.sampler_work(32, B_GAN, kc.GAN_MEM,
+                                             kc.GAN_MEM))
+    no_lib = "none computes the gumbel sampler through the decoder"
+    res["K4"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": by, "library_ms": None, "library_call": no_lib,
+                 "shape": f"32 tokens, B {B_GAN}, M {kc.GAN_MEM}, bf16"}
+    L, _, H, B, _, dh = case.kv.shape
+    staged = torch.zeros((L, 2, H, B, 32, dh), dtype=case.kv.dtype,
+                         device=case.kv.device)
+
+    def step(plain):
+        fn = (case.ops.fused_decode_step_plain if plain
+              else case.ops.fused_decode_step)
+        return fn(case.stacked, case.cfg, case.kv, case.R, staged, case.ids,
+                  g[5], 5, case.count)
+
+    ms, plain_ms = kc.time_in_turns(lambda: step(False), lambda: step(True), 20)
+    bound, by = kc.bound_ms(*kc.sampler_work(1, B_GAN, kc.GAN_MEM, kc.GAN_MEM,
+                                             t0=5))
+    res["K5"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": by, "library_ms": None, "library_call": no_lib,
+                 "shape": f"1 token at step 5, B {B_GAN}, M {kc.GAN_MEM}, bf16"}
+    del case, staged
+    chain = kc.ChainCase("bfloat16", B_GAN, kc.GAN_MEM)
+    for key, variant, recompute in (("K6", "res", False),
+                                    ("K7", "recompute", True)):
+        ms, plain_ms = kc.time_in_turns(lambda: chain.run(variant),
+                                        lambda: chain.run("plain"), 2)
+        bound, by = kc.bound_ms(*kc.chain_work(chain.n, B_GAN, kc.GAN_MEM,
+                                               kc.GAN_MEM, recompute))
+        res[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": None,
+                    "library_call": "none computes the straight-through "
+                    "chain's backward", "shape": f"n {chain.n}, B {B_GAN}, "
+                    f"M {kc.GAN_MEM}, count {kc.GAN_MEM}, bf16"}
+    phase("numbers.gan_kernels", card=card,
+          **{k: res[k] for k in ("K4", "K5", "K6", "K7")})
     return res
 
 

@@ -6,7 +6,9 @@ Shapes are the baseline model's (H 10, d_head 50, HD 500, DI 1000, V 310)
 at a shortened memory, plus one case at the full M 4146; the tolerances are
 those of transformer_gan_torch.kernel_check. The backward kernels (K1b, K2b)
 and the forwards with dropout are checked with and without dropout and
-reset rows, in fp32 and bf16."""
+reset rows, in fp32 and bf16; the same_length window without memory; the
+GAN sampler (K4, K5) and reverse chain (K6, K7) at M 64, B 8, 24 and 64,
+with an odd count."""
 
 import pytest
 import torch
@@ -103,10 +105,48 @@ def test_backward_wrappers_count_launches(cuda):
 
 
 @pytest.mark.parametrize("variant", ["v2", "v1"])
-def test_kernels_refuse_a_window_with_every_key_masked(cuda, variant):
-    """same_length with no memory masks every key; the wrappers raise
-    instead of launching (the plain versions average uniformly, as JAX)."""
-    kernel, _, args = kc.attention_case(variant, torch.float32, 16, 1, 0,
-                                        M=0, same_length=True)
-    with pytest.raises(ValueError):
-        kernel(*args)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_average_a_window_with_every_key_masked(cuda, variant, dtype):
+    """same_length with no memory masks every key. Like the JAX kernels and
+    the plain versions, the kernels average all values uniformly, forward
+    and backward."""
+    fwd = kc.check_attention(variant, dtype, 37, 3, 0, M=0, same_length=True)
+    assert fwd["ok"], fwd
+    res = kc.check_attention_bwd(variant, dtype, 37, 3, 0, 0, same_length=True)
+    assert res["ok"], res
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: the GAN's gumbel sampler; K6 / K7: its reverse chain
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("step", [False, True], ids=["K4", "K5"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,count", [(8, 0), (64, 37), (24, 64)])
+def test_decode_kernels_match_plain(cuda, step, dtype, B, count):
+    res = kc.check_decode(dtype, B, count, chunks=(32, 27), step=step)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,count,T", [(8, 0, 1.0), (8, 64, 0.5),
+                                       (64, 37, 1.0)])
+def test_chain_kernels_match_plain(cuda, dtype, B, count, T):
+    res = kc.check_chain(dtype, B, count, T, n=27)
+    assert res["ok"], res
+
+
+def test_gan_wrappers_count_launches(cuda):
+    _native.reset_launches()
+    case = kc.DecodeCase("float32", 8, 10)
+    g = case.noise(3)
+    case.run(3, g)
+    case.run_steps(3, g)
+    chain = kc.ChainCase("float32", 8, 10, n=4)
+    chain.run("res")
+    chain.run("recompute")
+    chain.run("plain")
+    assert _native.LAUNCHES["decode_chunk"] == 1
+    assert _native.LAUNCHES["decode_step"] == 3
+    assert _native.LAUNCHES["chain_bwd_res"] == 1
+    assert _native.LAUNCHES["chain_bwd_recompute"] == 1

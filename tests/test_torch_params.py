@@ -62,13 +62,30 @@ def test_pytree_conversion_round_trip():
         np.testing.assert_array_equal(np.asarray(a), b)
 
 
+def archive_name(path) -> str:
+    """A pytree path as the archive names it (README, "Converting a JAX
+    checkpoint"): dict keys, list indices and field names joined by '/'."""
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", getattr(
+        k, "name", k)))) for k in path)
+
+
+def write_archive(ckpt_dir: str) -> str:
+    """The README recipe: an orbax checkpoint's leaves into ``<dir>.npz``."""
+    from transformer_gan_tpu.train.checkpoint import load_checkpoint
+    leaves = jax.tree_util.tree_flatten_with_path(load_checkpoint(ckpt_dir))[0]
+    np.savez(ckpt_dir + ".npz",
+             **{archive_name(p): np.asarray(v) for p, v in leaves})
+    return ckpt_dir + ".npz"
+
+
 def test_orbax_checkpoint_round_trip(tmp_path):
     """A JAX checkpoint written by the training code imports into the port
-    bit for bit."""
+    bit for bit, through its numpy archive."""
     from transformer_gan_tpu.train import checkpoint as ckpt
     jp = jxl.init_xl_params(jxl.XLConfig(**SMALL), seed=3)
     ckpt.save_checkpoint(str(tmp_path), "checkpoint_last", {"params": jp})
-    got = convert.import_jax_checkpoint(str(tmp_path / "checkpoint_last"))
+    got = convert.tensors_from_archive(convert.read_archive(
+        write_archive(str(tmp_path / "checkpoint_last"))))
     ref = _flat_jax(jp)
     assert set(got) == set(ref)
     for k, v in ref.items():

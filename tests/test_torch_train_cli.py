@@ -3,7 +3,8 @@ on a tiny random corpus): the run directory's checkpoints round-trip,
 ``--restart`` resumes the step and the schedule, the run directory feeds
 ``transformer_gan_torch.cli.generate.main`` unchanged, a warm start loads
 matching parameters, the unported features refuse, and a JAX training
-checkpoint (orbax) converts into the port's and back."""
+checkpoint (orbax, through its numpy archive) converts into the port's and
+back. Every run asks for the CPU (``--device cpu``)."""
 
 import glob
 import os
@@ -24,6 +25,7 @@ from transformer_gan_torch.train import optim as topt
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = ("--device", "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +55,7 @@ def _cfg_file(tmp_path, **train):
 def test_cli_trains_restarts_and_feeds_generation(tmp_path, corpus):
     cfg = _cfg_file(tmp_path)
     trainer = tcli.main(["--data_dir", corpus, "--cfg", cfg,
-                         "--work_dir", str(tmp_path / "work")])
+                         "--work_dir", str(tmp_path / "work"), *CPU])
     run = trainer.work_dir
     assert trainer.train_step_num == 6
     for name in ("checkpoint_last", "checkpoint_best"):
@@ -87,7 +89,7 @@ def test_cli_trains_restarts_and_feeds_generation(tmp_path, corpus):
     # --restart resumes the step count, the optimizer and the schedule
     cfg2 = _cfg_file(tmp_path, max_step=8)
     resumed = tcli.main(["--data_dir", corpus, "--cfg", cfg2,
-                         "--work_dir", run, "--restart"])
+                         "--work_dir", run, "--restart", *CPU])
     assert resumed.train_step_num == 8
     assert resumed.state.opt_state.count == 8
     _, opt2, meta2 = ckpt.load_checkpoint(run, "checkpoint_last")
@@ -101,7 +103,7 @@ def test_checkpoint_round_trip(tmp_path, corpus):
     parameters and optimizer state, through the flat layout."""
     cfg = _cfg_file(tmp_path, max_step=3, eval_interval=3)
     first = tcli.main(["--data_dir", corpus, "--cfg", cfg,
-                       "--work_dir", str(tmp_path / "a")])
+                       "--work_dir", str(tmp_path / "a"), *CPU])
     state = first.state
     params, opt, _ = ckpt.load_checkpoint(first.work_dir, "checkpoint_last")
     assert torch.equal(state.layout.flatten(params), state.flat.detach())
@@ -114,13 +116,14 @@ def test_checkpoint_round_trip(tmp_path, corpus):
 def test_warm_start_and_unported_features(tmp_path, corpus):
     cfg = _cfg_file(tmp_path, max_step=3, eval_interval=3)
     first = tcli.main(["--data_dir", corpus, "--cfg", cfg,
-                       "--work_dir", str(tmp_path / "a")])
+                       "--work_dir", str(tmp_path / "a"), *CPU])
     warm = _cfg_file(tmp_path, max_step=1, eval_interval=100,
                      load_from_previous=os.path.join(first.work_dir,
                                                      "checkpoint_last"))
     from transformer_gan_torch.config import training_config
     from transformer_gan_torch.train.loop import Trainer
-    tr = Trainer(training_config(warm), corpus, str(tmp_path / "b"))
+    tr = Trainer(training_config(warm), corpus, str(tmp_path / "b"),
+                 device="cpu")
     loaded = convert.load_params(os.path.join(first.work_dir,
                                               "checkpoint_last.pt"))
     live = tr.state.params()
@@ -133,13 +136,13 @@ def test_warm_start_and_unported_features(tmp_path, corpus):
         if key.startswith("DISCRIMINATOR"):
             c.DISCRIMINATOR.start_iter = 0
         with pytest.raises(NotImplementedError):
-            Trainer(c, corpus, str(tmp_path / "c"))
+            Trainer(c, corpus, str(tmp_path / "c"), device="cpu")
 
 
 def test_jax_training_checkpoint_converts(tmp_path):
     """A JAX training checkpoint (orbax: params, FusedOptState, metadata)
-    becomes the port's checkpoint files; its optimizer state converts back
-    to the JAX FusedOptState unchanged."""
+    becomes the port's checkpoint files through its numpy archive; its
+    optimizer state converts back to the JAX FusedOptState unchanged."""
     import jax
     import jax.numpy as jnp
     from transformer_gan_tpu.models import xl as jxl
@@ -154,8 +157,10 @@ def test_jax_training_checkpoint_converts(tmp_path):
     meta = {"train_step": 7, "best_val_loss": 3.5, "vocab": ["<S>", "<PAD>"]}
     jck.save_checkpoint(str(tmp_path / "jax"), "checkpoint_last",
                         {"params": jp, "opt_state": js}, meta)
-    out = convert.import_jax_train_checkpoint(
-        str(tmp_path / "jax" / "checkpoint_last"), str(tmp_path / "port"))
+    from test_torch_params import write_archive
+    out = convert.import_archive(
+        write_archive(str(tmp_path / "jax" / "checkpoint_last")),
+        str(tmp_path / "port"))
     assert out.endswith("checkpoint_last.pt")
     params, opt, meta2 = ckpt.load_checkpoint(str(tmp_path / "port"),
                                               "checkpoint_last")

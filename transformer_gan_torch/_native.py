@@ -34,7 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
                             "xl_attn_bwd_v2": 0, "xl_attn_bwd_v1": 0,
-                            "generate_chunk": 0}
+                            "generate_chunk": 0, "decode_chunk": 0,
+                            "decode_step": 0, "chain_bwd_res": 0,
+                            "chain_bwd_recompute": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -140,6 +142,11 @@ def lib() -> ctypes.CDLL:
             handle.tg_generate_chunk.restype = i32
             handle.tg_sizeof_gen_args.argtypes = []
             handle.tg_sizeof_gen_args.restype = i32
+            for name in ("tg_decode_chunk", "tg_decode_step", "tg_chain_bwd"):
+                getattr(handle, name).argtypes = [vp, vp]
+                getattr(handle, name).restype = i32
+            handle.tg_sizeof_chain_args.argtypes = []
+            handle.tg_sizeof_chain_args.restype = i32
             _lib = handle
         return _lib
 
@@ -159,6 +166,18 @@ def dtype_code(dtype) -> int:
 
 def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def resolve_device(device) -> "torch.device":
+    """``device``, or the card when None: without one that raises, since a
+    run on the CPU has to be asked for (``"cpu"``)."""
+    import torch
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device 'cpu' (--device "
+                               "cpu) to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
 
 
 def stream_ptr(device) -> int:

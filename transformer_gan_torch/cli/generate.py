@@ -22,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from .._native import resolve_device
 from ..config import (PACKAGED_VOCAB, inference_config, is_null,
                       training_config)
 from ..convert import PARAMS_SUFFIX, load_params
@@ -62,15 +63,15 @@ def _write_tokens(path, tokens_list, seq):
 
 
 def main(inference_cfg, device=None, generator: torch.Generator | None = None):
-    """Generate as the inference config says. ``device`` defaults to CUDA
-    when present; ``generator`` (on ``device``) draws all sampling noise
+    """Generate as the inference config says. ``device`` defaults to the
+    CUDA card and raises without one (pass ``"cpu"`` for the CPU);
+    ``generator`` (on ``device``) draws all sampling noise
     and defaults to one seeded with the training config's TRAIN.seed.
     Returns a summary: files written and generation time and tokens."""
     if inference_cfg.EVENT.event_representation != "magenta":
         raise NotImplementedError(
             "Newevent representation generations are yet to be implemented")
-    device = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                     else "cpu"))
+    device = resolve_device(device)
     model_dir = inference_cfg.MODEL.model_directory
     params_fp = os.path.join(model_dir, inference_cfg.MODEL.checkpoint_name
                              + PARAMS_SUFFIX)
@@ -265,7 +266,8 @@ def parse_args():
                         default="inference_config/inference_unconditional.yml",
                         help="path to the cfg file")
     parser.add_argument("--device", type=str, default=None,
-                        help="torch device (default: cuda when present)")
+                        help="torch device (default: the CUDA card; 'cpu' "
+                        "runs on the CPU)")
     return parser.parse_args()
 
 

@@ -9,8 +9,10 @@ the log, and ``checkpoint_last`` / ``checkpoint_best`` (``.pt`` parameters
 that ``transformer_gan_torch.cli.generate`` reads with
 ``MODEL.model_directory: W/<timestamp>``, ``MODEL.checkpoint_name:
 checkpoint_last``, beside ``.opt.pt`` optimizer state and ``.json``
-metadata). ``--restart --work_dir W/<timestamp>`` resumes from
-``checkpoint_last``. Trains on CUDA when present, else on the CPU.
+metadata; ``.gan.pt`` for a GAN run). ``--restart --work_dir
+W/<timestamp>`` resumes from ``checkpoint_last``. A config with a
+discriminator (``training_config/experiment_cnn.yml``) adds the GAN phases.
+Trains on the card; ``--device cpu`` trains on the CPU.
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ def parse_args(argv=None):
                         help="Debug the program (no checkpoints).")
     parser.add_argument("--save-all", action="store_true",
                         help="Save all checkpoints")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: the CUDA card; 'cpu' "
+                        "runs on the CPU)")
     return parser.parse_args(argv)
 
 
@@ -43,7 +48,7 @@ def main(argv=None) -> Trainer:
     cfg = training_config(args.cfg)
     trainer = Trainer(cfg, data_dir=args.data_dir, work_dir=args.work_dir,
                       restart=args.restart, debug=args.debug,
-                      save_all=args.save_all)
+                      save_all=args.save_all, device=args.device)
     trainer.train()
     # reload checkpoint_best, test-evaluate, log "| End of training | ..."
     trainer.final_best_eval()

@@ -3,14 +3,17 @@ JAX package.
 
 ``transformer_gan_tpu/config.py`` holds the full training and inference
 schemas. The port's defaults cover the keys it reads (the model's shape,
-the MLE trainer's TRAIN / EVALUATE / INITIALIZER / DATASET keys, the keys
-that must stay off because their features are not ported, and the
-precision keys under ``TPU``), each with the JAX package's default; a file
-may set any other key, which is kept as it is. Values keep attribute access
+the MLE trainer's TRAIN / EVALUATE / INITIALIZER / DATASET keys, the GAN
+phases' DISCRIMINATOR / PPO keys and ``TPU.gan_*`` switches, the keys that
+must stay off because their features are not ported, and the precision
+keys under ``TPU``), each with the JAX package's default; a file may set
+any other key, which is kept as it is. Values keep attribute access
 (``cfg.MODEL.num_layers``).
 
-The vocab defaults to the file the JAX package ships, found from this
-module's location, so no default path depends on the working directory.
+The vocab defaults to the port's own copy of the performance vocab
+(``data/performance_vocab.txt``, byte for byte the JAX package's), found
+from this module's location, so no default path depends on the working
+directory.
 """
 from __future__ import annotations
 
@@ -19,9 +22,8 @@ import os
 
 import yaml
 
-PACKAGED_VOCAB = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "transformer_gan_tpu", "data", "performance_vocab.txt")
+PACKAGED_VOCAB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "data", "performance_vocab.txt")
 
 TRAINING_DEFAULTS = {
     "MODEL": {"num_layers": 6, "num_heads": 10, "units": 500,
@@ -41,12 +43,38 @@ TRAINING_DEFAULTS = {
     "INITIALIZER": {"base_init": ["normal", 0.01],
                     "embed_init": ["normal", 0.01]},
     "DATASET": {"continuous_refill": False},
-    "DISCRIMINATOR": {"type": "Null", "start_iter": 100},
+    "DISCRIMINATOR": {
+        "type": "Null", "start_iter": 100, "dis_loss_freq": 50,
+        "gen_loss_freq": 10, "eval_loss_freq": 10,
+        "freeze_discriminator": True, "truncate_backprop": False,
+        "sample_chunks_mem": 1, "beta_max": 100.0, "adapt": "no",
+        "dis_steps": 1, "tgt_len": 64, "mem_len": 64,
+        "gen_loss_factor": 30, "dis_loss_factor": 1, "batch_chunk": 1,
+        "context_len": 5, "backprop_outside": True, "src_mem_len": 200,
+        "gen_scheduler": "constant", "gen_lr_min": 0.0,
+        "gen_warmup_step": 0, "gen_decay_rate": 0.5, "gen_patience": 10,
+        "gen_lr": 0.00025 / 4.0,
+        "dis_scheduler": "constant", "dis_lr_min": 0.0,
+        "dis_warmup_step": 0, "dis_decay_rate": 0.5, "dis_patience": 10,
+        "dis_lr": 0.00025 / 4.0,
+        "BERT": {"learning_rate": 1e-5, "weight_decay": 0.0,
+                 "adam_epsilon": 1e-8, "max_grad_norm": 1.0,
+                 "model_type": "bert_lm", "loss_type": "rsgan",
+                 "model_path": "../BERT/checkpoint-1969000",
+                 "freeze_layers": [], "random_weights": False,
+                 "hidden_size": 768, "num_hidden_layers": 5,
+                 "num_attention_heads": 12, "intermediate_size": 3072},
+        "CNN": {"learning_rate": 1e-4, "embed_dim": 64, "hidden_dim": 64,
+                "num_rep": 64, "init": "uniform", "loss_type": "rsgan"}},
+    "PPO": {"dis_D_lr": 0.00025 / 4.0, "dis_D_update_D0_freq": 20,
+            "dis_D_type": "bert", "clip_param": 0.4, "dis_D_num_rep": 1},
     "METRICS": {"use_bleu": False, "use_self_bleu": False,
                 "CLASSIFIER": {"use_classifier": False}},
     "TPU": {"compute_dtype": "bfloat16", "param_dtype": "float32",
             "softmax_dtype": "float32", "cache_kv": True, "remat": False,
-            "profile_dir": ""},
+            "profile_dir": "", "gan_parallel_chunks": False,
+            "gan_decode_cache": "auto", "gan_fused_decode": "auto",
+            "gan_chain_bwd": "auto"},
 }
 
 INFERENCE_DEFAULTS = {
@@ -69,6 +97,26 @@ INFERENCE_DEFAULTS = {
 def is_null(value) -> bool:
     """The configs use "Null" (or "") for None."""
     return value is None or value == "Null" or value == ""
+
+
+def check_gan_config(cfg) -> None:
+    """Raise ``NotImplementedError`` for a GAN setting the port does not
+    run: the BERT discriminator, PPO losses, the rolling decode cache and
+    the raw-hidden memory (``TPU.cache_kv`` off)."""
+    d = cfg.DISCRIMINATOR
+    if is_null(d.type):
+        return
+    if d.type != "cnn":
+        raise NotImplementedError(
+            f"DISCRIMINATOR.type {d.type!r} is not ported yet (cnn is)")
+    if "ppo" in str(d.CNN.loss_type):
+        raise NotImplementedError("PPO losses are not ported yet")
+    if str(cfg.TPU.gan_decode_cache) == "rolling":
+        raise NotImplementedError(
+            "TPU.gan_decode_cache: rolling is not ported (the port samples "
+            "on the chunked decode cache)")
+    if not cfg.TPU.cache_kv:
+        raise NotImplementedError("GAN training needs TPU.cache_kv: true")
 
 
 class Config(dict):

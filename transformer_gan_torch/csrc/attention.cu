@@ -8,7 +8,9 @@
 //     read from a precomputed [BH, q, klen] input (BD_IN = true).
 // Both write o = softmax(S) V in fp32 and the row max m and row sum l of the
 // unnormalised exponentials, with the mask of pallas_attention._mask_block
-// (memory valid count, per-row reset, same_length band). Attention dropout
+// (memory valid count, per-row reset, same_length band; same_length without
+// memory masks every key, and then every key counts with the masked score, a
+// uniform average, as in the TPU kernels). Attention dropout
 // (training) zeroes P where the (seed, bh, i, j) hash of common.cuh falls
 // below thr and scales o by 1 / (1 - rate) after P V, as the TPU kernels do;
 // l stays the sum of the undropped exponentials. The backward kernels
@@ -91,7 +93,8 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
   // for every row; keys right of the last row's causal edge too.
   int jlo = reset_row ? M : max(M - count, 0);
   jlo = (jlo / kKeyTile) * kKeyTile;
-  const int jhi = min(klen, M + min(i0 + kRows, q));
+  const bool uniform = xl_all_masked(M, same_length);
+  const int jhi = uniform ? klen : min(klen, M + min(i0 + kRows, q));
   const int h = bh / B;
 
   for (int j0 = jlo; j0 < jhi; j0 += kKeyTile) {
@@ -130,9 +133,11 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
       if (i >= q) continue;  // warp-uniform
       const int j = j0 + lane;
       const bool valid =
-          j < klen && !xl_masked(i, j, q, M, count, reset_row, same_length);
+          j < klen && (uniform || !xl_masked(i, j, q, M, count, reset_row, same_length));
       float s = -INFINITY;
-      if (valid) {
+      if (uniform && valid) {
+        s = kMaskedScore;
+      } else if (valid) {
         float ac = 0.f;
         for (int d = 0; d < dh; ++d) ac += s_qw[r * ds + d] * s_k[lane * ds + d];
         if (BD_IN) {

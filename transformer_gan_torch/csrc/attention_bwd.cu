@@ -205,7 +205,8 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
 
   int jlo = reset_row ? M : max(M - a.count, 0);
   jlo = (jlo / kKeyTile) * kKeyTile;
-  const int jhi = min(klen, M + min(i0 + kRows, q));
+  const bool uniform = xl_all_masked(M, a.same_length);
+  const int jhi = uniform ? klen : min(klen, M + min(i0 + kRows, q));
 
   for (int j0 = jlo; j0 < jhi; j0 += kKeyTile) {
     __syncthreads();
@@ -231,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
       if (i >= q) continue;  // warp-uniform
       const int j = j0 + lane;
       const bool valid =
-          j < klen && !xl_masked(i, j, q, M, a.count, reset_row, a.same_length);
+          j < klen && (uniform || !xl_masked(i, j, q, M, a.count, reset_row, a.same_length));
       float s = 0.f, dp = 0.f;
       if (valid) {
         float ac = 0.f;
@@ -239,7 +240,9 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
           ac += s_qw[r * ds + d] * s_k[lane * ds + d];
           dp += s_do[r * ds + d] * s_v[lane * ds + d];
         }
-        if (BD_IN) {
+        if (uniform) {
+          s = kMaskedScore;
+        } else if (BD_IN) {
           s = (ac + to_f<T>(bd[(static_cast<long long>(bh) * q + i) * klen + j])) * a.scale;
         } else {
           const int c = q - 1 - i + j - c0;
@@ -327,7 +330,8 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_
   for (int t = 0; t < kMaxOut; ++t) acc_k[t] = acc_v[t] = 0.f;
 
   // rows that can see a key of the tile: j <= M + i
-  const int ilo = (max(j0 - M, 0) / kRows) * kRows;
+  const bool uniform = xl_all_masked(M, a.same_length);
+  const int ilo = uniform ? 0 : (max(j0 - M, 0) / kRows) * kRows;
   for (int i0 = ilo; i0 < q; i0 += kRows) {
     __syncthreads();
     load_row_tile<T, BD_IN>(a, bh, i0, ds, s_qw, s_qr, s_do, s_m, s_l, s_D);
@@ -345,7 +349,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_
     for (int rr = 0; rr < 4; ++rr) {
       const int r = warp * 4 + rr, i = i0 + r, j = j0 + lane;
       const bool valid = i < q && j < klen &&
-                         !xl_masked(i, j, q, M, a.count, reset_row, a.same_length);
+                         (uniform || !xl_masked(i, j, q, M, a.count, reset_row, a.same_length));
       float s = 0.f, dp = 0.f;
       if (valid) {
         float ac = 0.f;
@@ -353,7 +357,9 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_
           ac += s_qw[r * ds + d] * s_k[lane * ds + d];
           dp += s_do[r * ds + d] * s_v[lane * ds + d];
         }
-        if (BD_IN) {
+        if (uniform) {
+          s = kMaskedScore;
+        } else if (BD_IN) {
           s = (ac + to_f<T>(bd[(static_cast<long long>(bh) * q + i) * klen + j])) * a.scale;
         } else {
           const int c = q - 1 - i + j - c0;
@@ -410,6 +416,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_drk(BwdArgs a) {
   const int q = a.q, M = a.M, dh = a.dh, B = a.B, klen = M + q, kp = klen + q;
   const int ds = dh | 1;
   const int n_kv = kKeyTile + kRows - 1;  // keys one (row tile, c tile) touches
+  const bool uniform = xl_all_masked(M, a.same_length);
   float* s_rk = smem;                     // [kKeyTile][ds]
   float* s_qw = s_rk + kKeyTile * ds;
   float* s_qr = s_qw + kRows * ds;
@@ -441,7 +448,9 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_drk(BwdArgs a) {
     for (int i0 = 0; i0 < q; i0 += kRows) {
       // keys j = c - (q-1) + i of this tile: jw0 .. jw0 + n_kv - 1
       const int jw0 = c0 - (q - 1) + i0;
-      if (jw0 > M + min(i0 + kRows, q) - 1 || jw0 + n_kv - 1 < jvalid) continue;
+      if (uniform ? (jw0 > klen - 1 || jw0 + n_kv - 1 < 0)
+                  : (jw0 > M + min(i0 + kRows, q) - 1 || jw0 + n_kv - 1 < jvalid))
+        continue;
       __syncthreads();
       load_row_tile<T, false>(a, bh, i0, ds, s_qw, s_qr, s_do, s_m, s_l, s_D);
       for (int e = threadIdx.x; e < n_kv * dh; e += blockDim.x) {
@@ -459,7 +468,8 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_drk(BwdArgs a) {
         const int r = warp * 4 + rr, i = i0 + r, c = c0 + lane;
         const int j = c - (q - 1) + i, jw = lane + r;  // jw: key row in s_k
         const bool valid = i < q && j >= 0 && j < klen &&
-                           !xl_masked(i, j, q, M, a.count, reset_row, a.same_length);
+                           (uniform || !xl_masked(i, j, q, M, a.count, reset_row,
+                                                  a.same_length));
         float s = 0.f, dp = 0.f;
         if (valid) {
           float ac = 0.f, bdv = 0.f;
@@ -468,7 +478,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_drk(BwdArgs a) {
             bdv += s_qr[r * ds + d] * s_rk[lane * ds + d];
             dp += s_do[r * ds + d] * s_v[jw * ds + d];
           }
-          s = ac + bdv;
+          s = uniform ? kMaskedScore : ac + bdv;
         }
         const bool keep =
             a.thr == 0u || (valid && drop_keep(drop_row_key(a.seed, bh, i), j, a.thr));

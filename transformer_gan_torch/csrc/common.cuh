@@ -88,6 +88,16 @@ __device__ __forceinline__ bool xl_masked(int i, int j, int q, int M, int count,
   return mk || (reset_row && j < M);
 }
 
+// same_length without memory masks every key of every row. The JAX kernels
+// and the plain versions then give every key the same masked score (NEG of
+// ops/attention.py, -0.7 * FLT_MAX, written here bit for bit), so P is
+// uniform over all keys: the kernels take every key as valid with that score.
+constexpr float kMaskedScore = -0x1.666664p+127f;
+
+__device__ __forceinline__ bool xl_all_masked(int M, int same_length) {
+  return same_length != 0 && M == 0;
+}
+
 // Attention dropout bits: a counter-based hash of (seed, bh, i, j), so the
 // forward and backward kernels and both plain versions draw the same mask
 // whatever order the blocks run in (ops/attention.dropout_bits is the same

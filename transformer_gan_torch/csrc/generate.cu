@@ -4,243 +4,17 @@
 // (reached through _make_gen_call / fused_generate_chunk): n tokens of
 // inference sampling, each one embed -> L decoder layers against the big K/V
 // cache plus the staged ring -> logits -> logit surgery -> softmax -> top-k
-// -> floor -> gumbel argmax -> the token fed back for the next step.
-//
-// The TPU kernel walks a sequential (T, L) grid and carries the token, the
-// empty-run counter and the staged ring in VMEM scratch. Blocks on Hopper run
-// in no order and carry nothing, so here one C entry point per chunk runs a
-// host loop over the n steps and the L layers that launches a short chain of
-// small kernels on the caller's stream. Stream order is the step order; the
-// token and the counter stay on the device between steps and Python is off
-// the per-token path. Per step and layer:
-//   embed gather (once per step) -> [pre-LN] -> q, k, v GEMVs (k and v land
-//   in the staged ring at row t) -> decode attention -> o GEMV -> residual +
-//   LN -> FF1 GEMV + ReLU -> FF2 GEMV -> residual + LN; then the logits GEMV
-//   and the sampling epilogue.
-//
-// What bounds it on the H100: bytes. Each step reads the K/V cache,
-// 2 * L * B * M * HD * 2 bytes in bf16 (about 50 MB a lane at M 4146), plus
-// the weights (L * (4 HD^2 + 2 HD DI) * 2 bytes, 24 MB, L2-resident across
-// steps at B = 1) for a few FLOPs a byte. Decode attention takes one block
-// per (h, b) and a warp per key, lanes along d_head, so each key row is one
-// coalesced read; GEMVs take a block per (32 columns, lane) with 8 warps
-// splitting K. This first version leaves the card mostly idle at B = 1
-// (H * B blocks); splitting M across blocks, a persistent kernel or a CUDA
-// graph is later work.
-//
-// Rounding follows the plain version (ops/generate.py): fp32 accumulation,
-// results rounded to the compute type after each product, on the residual
-// sums and on the logits; softmax, top-k and the gumbel draw run in fp32.
-#include "common.cuh"
+// -> floor -> gumbel argmax -> the token fed back for the next step. The
+// per-token chain and what bounds it are in decode_chain.cuh; this file adds
+// the sampling epilogue.
+#include "decode_chain.cuh"
 
 namespace {
-
-constexpr int kGemvCols = 32;
-constexpr int kGemvWarps = 8;
-constexpr int kAttnThreads = 256;
-constexpr int kMaxDPL = 4;  // d_head <= 128
-constexpr float kNeg = -1e30f;
-
-template <typename T>
-__global__ void embed_kernel(const int* __restrict__ ids, const T* __restrict__ emb,
-                             T* __restrict__ x, int HD) {
-  const int b = blockIdx.x;
-  const long long row = static_cast<long long>(ids[b]) * HD;
-  for (int d = threadIdx.x; d < HD; d += blockDim.x) x[b * HD + d] = emb[row + d];
-}
-
-// out[b, n] = rnd(rnd(x[b] . W[:, n]) + bias[n]), optionally ReLU'd.
-// W is [K, N] row-major; grid (ceil(N / 32), B). Column n is stored at
-// out + (n / seg) * seg_stride + b * out_stride + n % seg: seg = N is a plain
-// row, seg = d_head scatters the heads into an h-major [H, B, ., d_head] buffer.
-template <typename T>
-__global__ void __launch_bounds__(kGemvWarps * 32)
-gemv_kernel(const T* __restrict__ x, long long x_stride, const T* __restrict__ W,
-            int K, int N, const T* __restrict__ bias, int relu, T* __restrict__ out,
-            long long out_stride, int seg, long long seg_stride) {
-  extern __shared__ float smem[];
-  float* xs = smem;                 // [K]
-  float* red = smem + K;            // [kGemvWarps][32]
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kGemvCols + lane;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) xs[k] = to_f<T>(x[b * x_stride + k]);
-  __syncthreads();
-  float acc = 0.f;
-  if (n < N)
-    for (int k = warp; k < K; k += kGemvWarps)
-      acc += xs[k] * to_f<T>(W[static_cast<long long>(k) * N + n]);
-  red[warp * 32 + lane] = acc;
-  __syncthreads();
-  if (warp == 0 && n < N) {
-    float s = 0.f;
-    for (int w = 0; w < kGemvWarps; ++w) s += red[w * 32 + lane];
-    float y = rnd<T>(s);
-    if (bias != nullptr) y = rnd<T>(y + to_f<T>(bias[n]));
-    if (relu) y = fmaxf(y, 0.f);
-    out[(n / seg) * seg_stride + b * out_stride + n % seg] = from_f<T>(y);
-  }
-}
-
-// v = b ? rnd(a + b) : a; sum_out = v (optional); out = LN(v) if do_ln else v.
-// LayerNorm statistics in fp32 (eps 1e-5), scale and bias in fp32.
-template <typename T>
-__global__ void ln_kernel(const T* __restrict__ a, const T* __restrict__ bsrc,
-                          const float* __restrict__ scale, const float* __restrict__ bias,
-                          T* __restrict__ sum_out, T* __restrict__ out, int N, int do_ln) {
-  extern __shared__ float smem[];
-  float* v = smem;         // [N]
-  float* red = smem + N;   // [32]
-  const int row = blockIdx.x;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float x = to_f<T>(a[row * N + n]);
-    if (bsrc != nullptr) x = rnd<T>(x + to_f<T>(bsrc[row * N + n]));
-    v[n] = x;
-    if (sum_out != nullptr) sum_out[row * N + n] = from_f<T>(x);
-  }
-  __syncthreads();
-  if (!do_ln) {
-    for (int n = threadIdx.x; n < N; n += blockDim.x) out[row * N + n] = from_f<T>(v[n]);
-    return;
-  }
-  float s = 0.f;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) s += v[n];
-  const float mean = block_sum(s, red) / N;
-  float s2 = 0.f;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const float c = v[n] - mean;
-    s2 += c * c;
-  }
-  const float var = block_sum(s2, red) / N;
-  const float inv = rsqrtf(var + 1e-5f);
-  for (int n = threadIdx.x; n < N; n += blockDim.x)
-    out[row * N + n] = from_f<T>((v[n] - mean) * inv * scale[n] + bias[n]);
-}
-
-// One token's attention for layer l, one block per (h, b). The big cache
-// Kb, Vb is h-major [H, B, M, dh] and the staged ring sk, sv [H, B, C, dh],
-// so the block's keys are one contiguous run of dh-long rows. Big slot j sits
-// at distance M - j + t (R row j - t), staged slot s at t - s (R row
-// M - t + s); R row r holds distance M - r. Masked: big j < max(M - count,
-// t + sl), staged s > t.
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
-decode_attn_kernel(const T* __restrict__ qb, const T* __restrict__ Kb,
-                   const T* __restrict__ Vb, const T* __restrict__ sk,
-                   const T* __restrict__ sv, const T* __restrict__ R,
-                   const T* __restrict__ rwb, const T* __restrict__ rrb,
-                   T* __restrict__ ctx, int M, int C, int HD, int dh, int t, int count,
-                   int sl, float scale) {
-  extern __shared__ float smem[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const long long hb = static_cast<long long>(h) * gridDim.y + b;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  float* qw = smem;                   // [dh]
-  float* qr = qw + dh;                // [dh]
-  float* red = qr + dh;               // [32]
-  float* part = red + 32;             // [nw][dh]
-  float* sc = part + nw * dh;         // [M + C]
-
-  const int hoff = h * dh;
-  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
-    const float qv = to_f<T>(qb[b * HD + hoff + d]);
-    qw[d] = rnd<T>(qv + to_f<T>(rwb[hoff + d]));
-    qr[d] = rnd<T>(qv + to_f<T>(rrb[hoff + d]));
-  }
-  __syncthreads();
-
-  const int jlo = min(M, max(M - count, t + sl));
-  const int n_big = M - jlo;
-  const int n_keys = n_big + t + 1;
-
-  auto key_row = [&](int kk, const T* big, const T* staged) -> const T* {
-    if (kk < n_big) return big + (hb * M + jlo + kk) * dh;
-    return staged + (hb * C + (kk - n_big)) * dh;
-  };
-
-  float lmax = -INFINITY;
-  for (int kk = warp; kk < n_keys; kk += nw) {
-    const T* krow = key_row(kk, Kb, sk);
-    const int r = kk < n_big ? jlo + kk - t : M - t + (kk - n_big);
-    const T* rrow = R + static_cast<long long>(r) * HD + hoff;
-    float ac = 0.f, bd = 0.f;
-    for (int d = lane; d < dh; d += 32) {
-      ac += qw[d] * to_f<T>(krow[d]);
-      bd += qr[d] * to_f<T>(rrow[d]);
-    }
-    ac = warp_sum(ac);
-    bd = warp_sum(bd);
-    const float s = rnd<T>(rnd<T>(ac) + rnd<T>(bd)) * scale;
-    if (lane == 0) sc[kk] = s;
-    lmax = fmaxf(lmax, s);
-  }
-  const float mx = block_max(lmax, red);  // syncs: sc is complete after this
-  float lsum = 0.f;
-  for (int kk = threadIdx.x; kk < n_keys; kk += blockDim.x) {
-    const float e = expf(sc[kk] - mx);
-    sc[kk] = e;
-    lsum += e;
-  }
-  const float denom = block_sum(lsum, red);  // syncs
-
-  float acc[kMaxDPL];
-#pragma unroll
-  for (int c = 0; c < kMaxDPL; ++c) acc[c] = 0.f;
-  for (int kk = warp; kk < n_keys; kk += nw) {
-    const float p = rnd<T>(sc[kk] / denom);
-    const T* vrow = key_row(kk, Vb, sv);
-#pragma unroll
-    for (int c = 0; c < kMaxDPL; ++c) {
-      const int d = lane + 32 * c;
-      if (d < dh) acc[c] += p * to_f<T>(vrow[d]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxDPL; ++c) {
-    const int d = lane + 32 * c;
-    if (d < dh) part[warp * dh + d] = acc[c];
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < nw; ++w) s += part[w * dh + d];
-    ctx[b * HD + hoff + d] = from_f<T>(s);
-  }
-}
 
 // Sampling epilogue, one block per lane: surgery, softmax(l / T), top-k in
 // probability space (k-th largest counting duplicates, ties kept),
 // log(max(p, 1e-38)) + g, argmax with the lowest index winning ties.
 // technique: 0 topk, 1 random, 2 gumbel (argmax(l / T + g), no softmax).
-struct ArgMax {
-  float v;
-  int i;
-};
-
-__device__ __forceinline__ ArgMax better(ArgMax a, ArgMax b) {
-  if (b.v > a.v || (b.v == a.v && b.i < a.i)) return b;
-  return a;
-}
-
-__device__ ArgMax block_argmax(ArgMax a, float* redv, int* redi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    ArgMax other{__shfl_xor_sync(kFullMask, a.v, o), __shfl_xor_sync(kFullMask, a.i, o)};
-    a = better(a, other);
-  }
-  __syncthreads();
-  if (lane == 0) {
-    redv[warp] = a.v;
-    redi[warp] = a.i;
-  }
-  __syncthreads();
-  ArgMax r{redv[0], redi[0]};
-  for (int w = 1; w < nw; ++w) r = better(r, ArgMax{redv[w], redi[w]});
-  return r;
-}
-
 template <typename T>
 __global__ void sample_kernel(const T* __restrict__ logits, const float* __restrict__ g,
                               int* __restrict__ ids, int* __restrict__ er,
@@ -314,171 +88,27 @@ __global__ void sample_kernel(const T* __restrict__ logits, const float* __restr
 
 }  // namespace
 
-// Operands of one chunk. Pointers are device pointers; T is the compute
-// type (dtype 0 float32, 1 bfloat16) unless marked float or int.
-struct GenArgs {
-  int dtype, n, L, B, M, HD, DI, H, V;
-  int pre_lnorm, same_length, technique, topk, exclude_bos, num_empty, empty_token;
-  int count;
-  float scale, temperature;
-  const void* kv;     // [L, 2, H, B, M, dh] big K/V cache (the XL memory)
-  const void* R;      // [L, M + 1, HD], row r = distance M - r
-  const void* q_w;    // [L, HD, HD]
-  const void* k_w;
-  const void* v_w;
-  const void* o_w;
-  const void* ff1;    // [L, HD, DI]
-  const void* fb1;    // [L, DI]
-  const void* ff2;    // [L, DI, HD]
-  const void* fb2;    // [L, HD]
-  const float* ln_as; // [L, HD] float
-  const float* ln_ab;
-  const float* ln_fs;
-  const float* ln_fb;
-  const void* rwb;    // [HD]
-  const void* rrb;
-  const void* emb;    // [V, HD], pre-scaled by sqrt(d_model)
-  const void* emb_t;  // [HD, V]
-  const void* crit_bias;  // [V]
-  const float* g;     // [n, B, V] float gumbel noise
-  int* ids;           // [B] in: first token, out: last token
-  int* er;            // [B] empty-run counters, in and out
-  int* tokens;        // [n, B] out
-  void* staged;       // [L, 2, H, B, n, dh] out: the chunk's K/V rows
-  void* logits_out;   // [n, B, V] out, or null
-  void* x;            // scratch [B, HD] x 6, [B, DI], [B, V]
-  void* w_in;
-  void* q;
-  void* ctx;
-  void* attn;
-  void* out;
-  void* hid;          // [B, DI]
-  void* ff;
-  void* logits;       // [B, V]
-};
-
-template <typename T>
-static int run_chunk(const GenArgs& a, cudaStream_t st) {
-  const int L = a.L, B = a.B, M = a.M, HD = a.HD, DI = a.DI, H = a.H, V = a.V, n = a.n;
-  const int dh = HD / H;
-  // per layer: K then V, each h-major [H, B, rows, dh]
-  const long long big_kv = static_cast<long long>(B) * M * HD;
-  const long long st_kv = static_cast<long long>(B) * n * HD;
-  auto P = [](const void* p) { return static_cast<const T*>(p); };
-  auto W = [](void* p) { return static_cast<T*>(p); };
-  T* staged = W(a.staged);
-
-  const int gemv_threads = kGemvWarps * 32;
-  auto gemv_to = [&](const T* x, long long xs, const T* w, int K, int N, const T* bias,
-                     int relu, T* out, long long os, int seg, long long seg_stride) -> int {
-    const size_t smem = sizeof(float) * (K + kGemvWarps * 32);
-    cudaError_t e = tg_allow_smem(gemv_kernel<T>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((N + kGemvCols - 1) / kGemvCols, B);
-    gemv_kernel<T><<<grid, gemv_threads, smem, st>>>(x, xs, w, K, N, bias, relu, out, os,
-                                                     seg, seg_stride);
-    TG_CHECK();
-    return 0;
-  };
-  auto gemv = [&](const T* x, long long xs, const T* w, int K, int N, const T* bias,
-                  int relu, T* out, long long os) -> int {
-    return gemv_to(x, xs, w, K, N, bias, relu, out, os, N, 0);
-  };
-  auto ln = [&](const T* x, const T* y, const float* sc, const float* bi, T* sum_out,
-                T* out, int do_ln) -> int {
-    const size_t smem = sizeof(float) * (HD + 32);
-    cudaError_t e = tg_allow_smem(ln_kernel<T>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ln_kernel<T><<<B, 256, smem, st>>>(x, y, sc, bi, sum_out, out, HD, do_ln);
-    TG_CHECK();
-    return 0;
-  };
-  const size_t attn_smem =
-      sizeof(float) * (2 * dh + 32 + (kAttnThreads / 32) * dh + M + n);
-  {
-    cudaError_t e = tg_allow_smem(decode_attn_kernel<T>, attn_smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const size_t samp_smem = sizeof(float) * (V + 64);
-  {
-    cudaError_t e = tg_allow_smem(sample_kernel<T>, samp_smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-
-  int rc;
-  T* x = W(a.x);
-  for (int t = 0; t < n; ++t) {
-    embed_kernel<T><<<B, 256, 0, st>>>(a.ids, P(a.emb), x, HD);
-    TG_CHECK();
-    for (int l = 0; l < L; ++l) {
-      const long long wl = static_cast<long long>(l) * HD;
-      const T* w_in = x;
-      if (a.pre_lnorm) {
-        if ((rc = ln(x, nullptr, a.ln_as + wl, a.ln_ab + wl, nullptr, W(a.w_in), 1))) return rc;
-        w_in = W(a.w_in);
-      }
-      const long long sq = static_cast<long long>(l) * HD * HD;
-      const T* Kl = P(a.kv) + 2 * l * big_kv;
-      T* skl = staged + 2 * l * st_kv;
-      // k and v land in the staged ring at row t, head by head
-      const long long row_b = static_cast<long long>(n) * dh;
-      const long long row_h = static_cast<long long>(B) * n * dh;
-      const long long row_t = static_cast<long long>(t) * dh;
-      if ((rc = gemv(w_in, HD, P(a.q_w) + sq, HD, HD, nullptr, 0, W(a.q), HD))) return rc;
-      if ((rc = gemv_to(w_in, HD, P(a.k_w) + sq, HD, HD, nullptr, 0, skl + row_t, row_b, dh,
-                        row_h))) return rc;
-      if ((rc = gemv_to(w_in, HD, P(a.v_w) + sq, HD, HD, nullptr, 0, skl + st_kv + row_t,
-                        row_b, dh, row_h))) return rc;
-      decode_attn_kernel<T><<<dim3(H, B), kAttnThreads, attn_smem, st>>>(
-          W(a.q), Kl, Kl + big_kv, skl, skl + st_kv,
-          P(a.R) + static_cast<long long>(l) * (M + 1) * HD, P(a.rwb), P(a.rrb),
-          W(a.ctx), M, n, HD, dh, t, a.count, a.same_length ? 1 : 0, a.scale);
-      TG_CHECK();
-      if ((rc = gemv(W(a.ctx), HD, P(a.o_w) + sq, HD, HD, nullptr, 0, W(a.attn), HD)))
-        return rc;
-      const T* ff_in;
-      if (a.pre_lnorm) {
-        // out = x + attn; ff_in = LN_f(out)
-        if ((rc = ln(x, W(a.attn), a.ln_fs + wl, a.ln_fb + wl, W(a.out), W(a.w_in), 1)))
-          return rc;
-        ff_in = W(a.w_in);
-      } else {
-        // out = LN_a(x + attn)
-        if ((rc = ln(x, W(a.attn), a.ln_as + wl, a.ln_ab + wl, nullptr, W(a.out), 1)))
-          return rc;
-        ff_in = W(a.out);
-      }
-      const long long f1 = static_cast<long long>(l) * HD * DI;
-      if ((rc = gemv(ff_in, HD, P(a.ff1) + f1, HD, DI,
-                     P(a.fb1) + static_cast<long long>(l) * DI, 1, W(a.hid), DI)))
-        return rc;
-      if ((rc = gemv(W(a.hid), DI, P(a.ff2) + f1, DI, HD, P(a.fb2) + wl, 0, W(a.ff), HD)))
-        return rc;
-      if (a.pre_lnorm) {
-        if ((rc = ln(W(a.out), W(a.ff), nullptr, nullptr, nullptr, x, 0))) return rc;
-      } else {
-        if ((rc = ln(W(a.out), W(a.ff), a.ln_fs + wl, a.ln_fb + wl, nullptr, x, 1)))
-          return rc;
-      }
-    }
-    T* lg = a.logits_out != nullptr
-                ? W(a.logits_out) + static_cast<long long>(t) * B * V
-                : W(a.logits);
-    if ((rc = gemv(x, HD, P(a.emb_t), HD, V, P(a.crit_bias), 0, lg, V))) return rc;
-    sample_kernel<T><<<B, 256, samp_smem, st>>>(
-        lg, a.g + static_cast<long long>(t) * B * V, a.ids, a.er, a.tokens + t * B, V,
-        a.technique, a.topk, a.temperature, a.exclude_bos, a.num_empty, a.empty_token);
-    TG_CHECK();
-  }
-  return 0;
-}
-
 extern "C" int tg_generate_chunk(const GenArgs* a, void* stream) {
-  if (a->HD % a->H != 0 || a->HD / a->H > 32 * kMaxDPL)
+  if (a->HD % a->H != 0 || a->HD / a->H > 32 * kMaxDPL || a->t0 != 0 || a->C != a->n)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  if (a->dtype == 0) return run_chunk<float>(*a, st);
-  if (a->dtype == 1) return run_chunk<__nv_bfloat16>(*a, st);
+  auto run = [&](auto zero) -> int {
+    using T = decltype(zero);
+    const int B = a->B, V = a->V;
+    const size_t samp_smem = sizeof(float) * (V + 64);
+    cudaError_t e = tg_allow_smem(sample_kernel<T>, samp_smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return run_chain<T>(*a, st, [&](const T* lg, int i, int) -> int {
+      sample_kernel<T><<<B, 256, samp_smem, st>>>(
+          lg, a->g + static_cast<long long>(i) * B * V, a->ids, a->er, a->tokens + i * B,
+          V, a->technique, a->topk, a->temperature, a->exclude_bos, a->num_empty,
+          a->empty_token);
+      TG_CHECK();
+      return 0;
+    });
+  };
+  if (a->dtype == 0) return run(0.f);
+  if (a->dtype == 1) return run(__nv_bfloat16{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

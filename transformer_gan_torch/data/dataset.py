@@ -8,10 +8,13 @@ module of the JAX package) with the same emission contracts:
   boundaries; ``TRAIN.random_crop`` (and its one-window mode at
   ``mem_length`` 0) and ``DATASET.continuous_refill`` as there;
 * eval iterator -> deterministic bptt windows over batches of pieces,
-  rank-sharded by slicing the piece list.
+  rank-sharded by slicing the piece list;
+* discriminator iterator -> (data, batch_token_num): each lane settles on a
+  piece long enough for a ``bptt`` crop and emits a fresh random crop of it
+  every batch.
 
 Not ported yet: note-status vectors (``TRAIN.append_note_status`` raises;
-``status_vec`` is always None) and the discriminator iterator.
+``status_vec`` is always None).
 """
 
 from __future__ import annotations
@@ -121,6 +124,36 @@ class _TrainLane:
             self._piece_id = None
             reset = True
         return n, reset
+
+
+class _DisLane:
+    """One batch column of the discriminator iterator: settles on the
+    first queue piece long enough to hold a full ``bptt`` crop, then emits
+    an independent random crop of it every batch."""
+
+    def __init__(self, queue, pieces, lengths, bptt, rng):
+        self._queue = queue
+        self._pieces = pieces
+        self._lengths = lengths
+        self._bptt = bptt
+        self._rng = rng
+        self._piece_id = None
+        self._dry = False
+
+    def emit(self, data_col):
+        if self._dry:
+            return 0
+        while self._piece_id is None:
+            pid = self._queue.take()
+            if pid is None:
+                self._dry = True
+                return 0
+            if self._lengths[pid] >= self._bptt:
+                self._piece_id = pid
+        n = self._lengths[self._piece_id]
+        lo = self._rng.randint(0, n - self._bptt + 1)
+        data_col[:] = self._pieces[self._piece_id][lo:lo + self._bptt]
+        return self._bptt
 
 
 class MusicDataset:
@@ -310,6 +343,41 @@ class MusicDataset:
         return iterator
 
     # ------------------------------------------------------------------ eval
+    def get_dis_iterator(self, batch_size, bptt, device=None, split="train",
+                         do_shuffle=True, seed=None):
+        """Real batches for the GAN phases -> (data [bptt, bsz], tokens)."""
+        pieces, lengths = self._split(split)
+        if batch_size >= len(pieces):
+            raise ValueError(f"batch_size {batch_size} must be below the "
+                             f"{len(pieces)} pieces of split {split!r}")
+
+        def iterator():
+            rng = np.random.RandomState(seed)
+
+            def fresh_epoch():
+                order = np.arange(len(pieces))
+                if do_shuffle:
+                    rng.shuffle(order)
+                queue = _EpochQueue(order)
+                return [_DisLane(queue, pieces, lengths, bptt, rng)
+                        for _ in range(batch_size)]
+
+            lanes = fresh_epoch()
+            data = np.empty((bptt, batch_size), dtype=np.int64)
+            while True:
+                data[:] = self.vocab.pad_id
+                batch_token_num = 0
+                for j, lane in enumerate(lanes):
+                    batch_token_num += lane.emit(data[:, j])
+                if batch_token_num == 0:
+                    if not do_shuffle:
+                        return
+                    lanes = fresh_epoch()
+                    continue
+                yield data.copy(), batch_token_num
+
+        return iterator
+
     def eval_iterator(self, batch_size, bptt, device=None, split="valid",
                       local_rank=0, world_size=0):
         pieces, lengths = self._split(split)

@@ -14,6 +14,7 @@ import math
 import torch
 
 from .infer.sample import SamplingConfig, gumbel_noise
+from .models import gan as gan_mod
 from .models import xl
 from .ops import attention as attn_ops
 from .ops import generate as gen_ops
@@ -349,3 +350,532 @@ def check_generate(dtype: str, B: int, count: int, chunks=(32, 7),
     res["max_abs_err"] = max(max(c["stage_max_abs_err"], c["logit0_max_abs_err"])
                              for c in res["chunks"])
     return res
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: the GAN's gumbel straight-through sampler
+# ---------------------------------------------------------------------------
+
+GAN_MEM = 64
+
+
+class DecodeCase:
+    """Seeded full-width operands of ``fused_decode_chunk`` /
+    ``fused_decode_step`` (the GAN op-point's M 64 by default)."""
+
+    def __init__(self, dtype: str, B: int, count: int, M: int = GAN_MEM,
+                 seed: int = 0, device="cuda"):
+        from .ops import decode as dec_ops
+        self.ops = dec_ops
+        self.cfg = baseline_config(dtype)
+        cfg, cd = self.cfg, self.cfg.cdtype
+        params = {k: v.to(device) for k, v in xl.init_xl_params(
+            cfg, seed, base_init=("normal", 0.02)).items()}
+        self.stacked = stack_decode_params(params, cfg)
+        L, HD = cfg.n_layer, cfg.n_head * cfg.d_head
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.kv = (torch.randn((L, 2, cfg.n_head, B, M, cfg.d_head),
+                               generator=self.gen, device=device) * 0.5).to(cd)
+        self.R = xl.precompute_r_heads(params, cfg, M + 1, device).reshape(
+            L, M + 1, HD).to(cd).contiguous()
+        self.ids = torch.randint(2, cfg.n_token, (B, 1), generator=self.gen,
+                                 device=device, dtype=torch.int32)
+        self.B, self.M, self.count, self.device = B, M, count, device
+
+    def noise(self, n: int) -> torch.Tensor:
+        return gumbel_noise((n, self.B, self.cfg.n_token), self.gen,
+                            self.device)
+
+    def run(self, n: int, g, plain: bool = False):
+        """K4 (or its plain version) over n tokens: (ids, one-hots, staged)."""
+        fn = (self.ops.fused_decode_chunk_plain if plain
+              else self.ops.fused_decode_chunk)
+        return fn(self.stacked, self.cfg, self.kv, self.R, self.ids, g,
+                  self.count, n)
+
+    def run_steps(self, n: int, g, plain: bool = False):
+        """K5 (or its plain version) token by token over a 32-row ring."""
+        fn = (self.ops.fused_decode_step_plain if plain
+              else self.ops.fused_decode_step)
+        L, _, H, B, _, dh = self.kv.shape
+        staged = torch.zeros((L, 2, H, B, max(n, 32), dh), dtype=self.kv.dtype,
+                             device=self.device)
+        ids, ohs = self.ids, []
+        for t in range(n):
+            ids, oh, staged = fn(self.stacked, self.cfg, self.kv, self.R,
+                                 staged, ids, g[t], t, self.count)
+            ohs.append(oh)
+        return ids, torch.stack(ohs), staged[..., :n, :]
+
+    def advance(self, out, n: int) -> None:
+        self.ids = out[0]
+        self.kv = torch.cat([self.kv[..., n:, :], out[2]], dim=4).contiguous()
+        self.count = min(self.count + n, self.M)
+
+
+def _compare_samples(dtype: str, k_out, p_out) -> dict:
+    """Kernel against plain sampler outputs (ids, one-hots [n, B, V],
+    staged [L, 2, H, B, n, dh]). fp32: ids and one-hots identical, staged
+    K/V within STAGE_TOL_F32. bf16: per lane, the staged rows up to its
+    first sampled-id divergence (rows computed from identical inputs)
+    within ATTN_REL_TOL_BF16 of max|ref|."""
+    tok_k, tok_p = k_out[1].argmax(-1), p_out[1].argmax(-1)     # [n, B]
+    div = first_divergence(tok_k, tok_p)
+    st_k, st_p = k_out[2].float(), p_out[2].float()
+    if dtype == "float32":
+        err = float((st_k - st_p).abs().max())
+        ok = (bool(torch.equal(k_out[1], p_out[1]))
+              and bool(torch.equal(k_out[0], p_out[0])) and err <= STAGE_TOL_F32)
+        return {"ids_equal": bool(torch.equal(tok_k, tok_p)),
+                "stage_max_abs_err": err, "ok": ok, "first_divergence": div}
+    err, n = 0.0, st_k.shape[4]
+    for b, d in enumerate(div):
+        rows = n if d is None else d + 1
+        err = max(err, float((st_k[:, :, :, b, :rows]
+                              - st_p[:, :, :, b, :rows]).abs().max()))
+    tol = ATTN_REL_TOL_BF16 * float(st_p.abs().max())
+    return {"lanes_diverged": sum(d is not None for d in div),
+            "first_divergence_min": min((d for d in div if d is not None),
+                                        default=None),
+            "stage_max_abs_err": err, "tol": tol, "ok": err <= tol}
+
+
+def check_decode(dtype: str, B: int, count: int, chunks=(32, 27),
+                 step: bool = False, **kw) -> dict:
+    """K4 (or, with ``step``, K5) against its plain version: the GAN's
+    chunks of 32 and 27 tokens, the second continuing from the kernel's
+    state."""
+    case = DecodeCase(dtype, B, count, **kw)
+    res = {"kernel": "K5" if step else "K4", "dtype": dtype, "B": B,
+           "count": count, "chunks": []}
+    run = case.run_steps if step else case.run
+    for n in chunks:
+        g = case.noise(n)
+        k_out = run(n, g)
+        torch.cuda.synchronize()
+        p_out = run(n, g, plain=True)
+        c = {"n": n, "count": case.count, **_compare_samples(dtype, k_out,
+                                                             p_out)}
+        res["chunks"].append(c)
+        case.advance(k_out, n)
+    res["ok"] = all(c["ok"] for c in res["chunks"])
+    res["max_abs_err"] = max(c["stage_max_abs_err"] for c in res["chunks"])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: the reverse straight-through chain
+# ---------------------------------------------------------------------------
+
+# Q against the plain chain. bf16: every entry within 2e-2 x max|Q_ref|
+# (K1b's rule; bf16 rounds each product's inputs where autograd rounds its
+# own intermediates). fp32: against the plain chain in fp64, every entry
+# within 1e-4 x max|Q_ref| except the rows of a ReLU kink, and the relative
+# Frobenius error ||Q - Q_ref|| / ||Q_ref|| within 1e-4 over all rows. The
+# chain crosses 6 layers x 1000 ReLUs for each of 58 tokens and 64 lanes,
+# 22M pre-activations, and a few of them sit within fp32 rounding of zero.
+# Two fp32 computations of one (a batched GEMM, a GEMV) then take opposite
+# sides, and the cotangent of the token before it jumps in that lane: on an
+# H100 one (token, lane) row of K6 and K7 read 4.7e-4 against the fp64
+# answer (max|Q| 0.92, B 64) where the next token held a pre-activation of
+# 1.3e-7, and every other row was within 1e-4. A row beyond 1e-4 passes
+# only when the next token in its lane has a pre-activation within
+# CHAIN_KINK_F32 of zero; a wrong kernel moves rows that have none.
+CHAIN_REL_TOL_F32 = 1e-4
+CHAIN_KINK_F32 = 1e-6
+CHAIN_REL_TOL_BF16 = 2e-2
+
+
+class ChainCase:
+    """Seeded full-width operands of the chain backward at one sampled
+    chunk (n tokens after M memory slots, ``count`` of them valid): the
+    window pass's lane buffers and residuals, straight-through cotangents
+    S and softmax outputs Y at temperature T."""
+
+    def __init__(self, dtype: str, B: int, count: int, T: float = 1.0,
+                 n: int = 59, M: int = GAN_MEM, seed: int = 0,
+                 device="cuda"):
+        from .ops import chain_bwd as chain_ops
+        self.ops = chain_ops
+        self.cfg = cfg = baseline_config(dtype)
+        cd, V = cfg.cdtype, cfg.n_token
+        self.params = {k: v.to(device) for k, v in xl.init_xl_params(
+            cfg, seed, base_init=("normal", 0.02)).items()}
+        gen = torch.Generator(device=device).manual_seed(seed)
+        ids = torch.randint(2, V, (n, B), generator=gen, device=device)
+        self.inputs = torch.nn.functional.one_hot(ids, V).float()
+        shape = (cfg.n_layer, cfg.n_head, B, M, cfg.d_head)
+        k_mem = (torch.randn(shape, generator=gen, device=device) * 0.5).to(cd)
+        v_mem = (torch.randn(shape, generator=gen, device=device) * 0.5).to(cd)
+        with torch.no_grad():
+            logits, kf, vf, _, self.res = xl.decode_recompute_window(
+                self.params, cfg, self.inputs, k_mem, v_mem, count,
+                collect_residuals=True)
+        self.kf, self.vf = torch.stack(kf).contiguous(), torch.stack(vf).contiguous()
+        g = gumbel_noise((n, B, V), gen, device)
+        self.Y = torch.softmax((logits.float() + g) / T, dim=-1)
+        self.S = torch.randn((n, B, V), generator=gen, device=device)
+        self.stacked = stack_decode_params(self.params, cfg)
+        self.count, self.T, self.n, self.B, self.M = count, T, n, B, M
+
+    def args(self):
+        return (self.params, self.cfg, self.kf, self.vf, self.inputs, self.S,
+                self.Y, self.count, self.T)
+
+    def run(self, variant: str):
+        """"res" (K6), "recompute" (K7) or "plain"."""
+        if variant == "res":
+            return self.ops.chain_bwd_q_res(*self.args(), self.res,
+                                            stacked=self.stacked)
+        if variant == "recompute":
+            return self.ops.chain_bwd_q(*self.args(), stacked=self.stacked)
+        return self.ops.chain_bwd_q_plain(*self.args())
+
+
+def check_chain(dtype: str, B: int, count: int, T: float = 1.0, **kw) -> dict:
+    """K6 and K7 against ``chain_bwd_q_plain`` on one chunk's operands (in
+    fp32 against the plain chain in fp64; see ``CHAIN_REL_TOL_F32``). Rows
+    [token, lane] beyond 1e-4 x max|Q_ref| are listed with the smallest
+    |ff_pre| of the next token's layers in that lane (a ReLU at its kink)."""
+    import dataclasses
+    case = ChainCase(dtype, B, count, T, **kw)
+    # [n, B]: the smallest |pre-activation| of token t + 1's layers in each
+    # lane (inf for the last token, which has none after it)
+    ff = case.res["ff_pre"].float().abs().amin(dim=(0, 3))        # [n, B]
+    kink_next = torch.cat([ff[1:], torch.full_like(ff[:1], math.inf)])
+    ref = case.run("plain")
+    f32 = dtype == "float32"
+    res = {"dtype": dtype, "B": B, "count": count, "T": T, "n": case.n}
+    if f32:
+        f64 = dataclasses.replace(case.cfg, compute_dtype="float64",
+                                  softmax_dtype="float64")
+        p64 = {k: v.double() for k, v in case.params.items()}
+        exact = case.ops.chain_bwd_q_plain(
+            p64, f64, case.kf.double(), case.vf.double(),
+            case.inputs.double(), case.S.double(), case.Y.double(), case.count,
+            case.T)
+        res["plain_fp32_rel_err"] = float((ref.double() - exact).norm()
+                                          / exact.norm())
+        ref = exact
+    scale = float(ref.abs().max())
+    res["max_abs_q"] = scale
+    res["tol"] = (f"{CHAIN_REL_TOL_F32} x max|Q| per entry outside rows at a "
+                  f"ReLU kink (|pre-activation| <= {CHAIN_KINK_F32}), "
+                  f"{CHAIN_REL_TOL_F32} relative Frobenius" if f32
+                  else CHAIN_REL_TOL_BF16 * scale)
+    ok = True
+    for variant, key in (("res", "K6"), ("recompute", "K7")):
+        q = case.run(variant).to(ref.dtype)
+        torch.cuda.synchronize()
+        err = (q - ref).abs().amax(-1)                               # [n, B]
+        res[key] = float(err.max())
+        res[key + "_rel_err"] = float((q - ref).norm() / ref.norm())
+        beyond = err > CHAIN_REL_TOL_F32 * scale
+        rows = beyond.nonzero().tolist()
+        res[key + "_rows_beyond_1e-4"] = [
+            {"token": t, "lane": b, "err": float(err[t, b]),
+             "min_abs_ff_pre_next": (float(kink_next[t, b])
+                                     if t + 1 < case.n else None)}
+            for t, b in rows[:8]]
+        if f32:
+            unexplained = int((beyond & (kink_next > CHAIN_KINK_F32)).sum())
+            res[key + "_rows_beyond_without_kink"] = unexplained
+            ok = (ok and res[key + "_rel_err"] <= CHAIN_REL_TOL_F32
+                  and unexplained == 0)
+        else:
+            ok = ok and res[key] <= CHAIN_REL_TOL_BF16 * scale
+    res["ok"] = ok
+    res["max_abs_err"] = max(res["K6"], res["K7"])
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The GAN phases at full width
+# ---------------------------------------------------------------------------
+
+class HostDraws(gan_mod.Draws):
+    """Draws from a CPU generator, moved to the device, so that the card
+    and the CPU see the same numbers."""
+
+    def _uniform(self, shape):
+        return torch.rand(shape, generator=self.generator,
+                          dtype=torch.float32).to(self.device)
+
+
+class GanCase:
+    """``train/gan_loop.GanPhases`` at full width on a seeded generator
+    (the baseline model, ``training_config/experiment_cnn.yml``'s
+    discriminator and GAN settings, batch ``B``), fed seeded real batches.
+    ``route`` "plain" runs the sampler and chain plain versions on the same
+    device. ``host_draws``: the random numbers of :class:`HostDraws` (the
+    same on the card and the CPU) in place of the phases' own generator on
+    the device (what a training run draws, and what is timed)."""
+
+    def __init__(self, dtype: str, B: int, device="cuda", route="kernel",
+                 seed: int = 0, dis_steps: int = 1, chain_bwd: str = "auto",
+                 host_draws: bool = True):
+        import dataclasses
+        import os
+        import types
+
+        import numpy as np
+
+        from .config import training_config
+        from .train import gan_loop
+        from .train import optim as topt
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        cfg = training_config(os.path.join(root, "training_config",
+                                           "experiment_cnn.yml"))
+        cfg.merge({"TRAIN": {"batch_size": B},
+                   "DISCRIMINATOR": {"dis_steps": dis_steps},
+                   "TPU": {"compute_dtype": dtype, "gan_chain_bwd": chain_bwd}})
+        xcfg = xl.XLConfig.from_cfg(cfg, 310)
+        params = xl.init_xl_params(xcfg, seed, base_init=("normal", 0.02))
+        layout = topt.FlatLayout.of(params)
+        state = types.SimpleNamespace(
+            flat=layout.flatten(params).to(device).requires_grad_(True),
+            layout=layout)
+        state.params = lambda: layout.unflatten(state.flat)
+        rng = np.random.RandomState(seed)
+
+        def batches():
+            while True:
+                yield rng.randint(2, 310, (cfg.DISCRIMINATOR.tgt_len, B)), 0
+
+        trainer = types.SimpleNamespace(
+            xcfg=xcfg, vocab=range(310), state=state, n_devices=1,
+            device=torch.device(device), dis_iter=batches)
+        self.phases = gan_loop.GanPhases(trainer, cfg)
+        self.phases.gcfg = dataclasses.replace(self.phases.gcfg, route=route)
+        if host_draws:
+            host = torch.Generator().manual_seed(seed + 1)
+            self.phases._draws = lambda: HostDraws(host, device)
+        self.state, self.B, self.cfg = state, B, cfg
+
+    def tokens_per_pass(self) -> int:
+        """Tokens one sampling pass generates (all lanes, all chunks)."""
+        return self.B * sum(self.phases.gcfg.chunk_lengths())
+
+
+# Card kernel path against CPU plain path, one dis and one gen update in
+# fp32 (check_gan_reference). Gradients: the relative Frobenius error of
+# each phase's flat gradient, and of every leaf whose norm is at least 1e-6
+# of its phase's. Not the largest entry of a leaf: the card and the CPU
+# compute the pre-activations of ~3M ReLUs a gen update in another order,
+# and one at its kink moves a weight column's gradient for that token (an
+# H100 read 1.05e-4 of ff_w1's max); and under rsgan the discriminator's
+# last two biases have an exact gradient of zero (the real and fake logits'
+# cotangents cancel), so theirs is rounding residue. The leaf limit, 5e-5,
+# sits above the worst leaf the H100 read (1.95e-5, convs.0.b) and far
+# below the same update in bf16 on the card, the control each check also
+# reads (it must land beyond the limit). Adam's first step moves each
+# weight by about lr whatever its gradient, the sign of a vanishing one a
+# coin toss: moves within lr x 1e-3 but for at most 1e-3 of the weights,
+# each within 2 lr (the H100 read 1.75e-4 of the discriminator's weights
+# beyond).
+GAN_REF_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-5, "grad_leaf_rel": 5e-5,
+               "leaf_floor": 1e-6, "move_rel": 1e-3, "flip_share": 1e-3}
+
+
+def _gan_update(dtype: str, B: int, device) -> dict:
+    """One dis and one gen update of :class:`GanCase`: logged losses, each
+    phase's flat gradient and parameter move, layouts and base lrs."""
+    case = GanCase(dtype, B, device)
+    ph = case.phases
+    dis0 = ph.dis_flat.detach().clone()
+    gen0 = case.state.flat.detach().clone()
+    grads = {"dis": ph.dis_phase(0).cpu(), "gen": ph.gen_phase(0).cpu()}
+    g, d = ph.pop_log_stats()
+    return {"gen_loss": g, "dis_loss": d, "grads": grads,
+            "moves": {"dis": (ph.dis_flat.detach() - dis0).cpu(),
+                      "gen": (case.state.flat.detach() - gen0).cpu()},
+            "layouts": {"dis": ph.dis_layout, "gen": case.state.layout},
+            "lr": {"dis": ph.dis_opt.base_lr, "gen": ph.gen_opt.base_lr}}
+
+
+def _grad_errs(ga, gb, layout, floor) -> dict:
+    """Relative Frobenius error of gradient ``ga`` against ``gb``, overall
+    and for the worst leaf whose norm is at least ``floor`` of the whole."""
+    ga, gb = ga.double(), gb.double()
+    total = float(gb.norm())
+    worst, name, entry = 0.0, None, 0.0
+    for leaf, off, shp in zip(layout.names, layout.offsets, layout.shapes):
+        n = math.prod(shp)
+        a, b = ga[off:off + n], gb[off:off + n]
+        if float(b.norm()) < floor * total:
+            continue
+        rel = float((a - b).norm() / b.norm())
+        entry = max(entry, float((a - b).abs().max() / b.abs().max()))
+        if rel > worst:
+            worst, name = rel, leaf
+    return {"grad_rel_err": float((ga - gb).norm()) / total,
+            "grad_leaf_max_rel_err": worst, "worst_leaf": name,
+            "grad_leaf_max_entry_rel_err": entry}
+
+
+def check_gan_reference(B: int = 8, devices=("cuda:0", "cpu")) -> dict:
+    """One dis and one gen update (fp32, the GAN op-point at batch ``B``)
+    of the kernel path on the card against the plain path on the CPU:
+    losses, every gradient leaf, the parameters' moves (``GAN_REF_TOL``).
+    The control, the same update in bf16 on the card, must read beyond the
+    leaf limit."""
+    k, p = (_gan_update("float32", B, dev) for dev in devices)
+    control = _gan_update("bfloat16", B, devices[0])
+    tol = GAN_REF_TOL
+    res = {"B": B, "tol": tol,
+           "kernel_losses": {"gen": k["gen_loss"], "dis": k["dis_loss"]},
+           "plain_losses": {"gen": p["gen_loss"], "dis": p["dis_loss"]}}
+    res["loss_rel_err"] = max(abs(k[n] - p[n]) / abs(p[n])
+                              for n in ("gen_loss", "dis_loss"))
+    ok = res["loss_rel_err"] <= tol["loss_rel"]
+    for phase in ("dis", "gen"):
+        layout = p["layouts"][phase]
+        errs = _grad_errs(k["grads"][phase], p["grads"][phase], layout,
+                          tol["leaf_floor"])
+        ctl = _grad_errs(control["grads"][phase], p["grads"][phase], layout,
+                         tol["leaf_floor"])
+        lr = p["lr"][phase]
+        diff = (k["moves"][phase] - p["moves"][phase]).abs()
+        flips = float((diff > tol["move_rel"] * lr).float().mean())
+        res[phase] = {**errs, "move_max_abs_err": float(diff.max()), "lr": lr,
+                      "move_share_beyond": flips,
+                      "control_bf16_grad_leaf_max_rel_err":
+                          ctl["grad_leaf_max_rel_err"],
+                      "control_bf16_worst_leaf": ctl["worst_leaf"]}
+        ok = (ok and errs["grad_rel_err"] <= tol["grad_rel"]
+              and errs["grad_leaf_max_rel_err"] <= tol["grad_leaf_rel"]
+              and ctl["grad_leaf_max_rel_err"] > tol["grad_leaf_rel"]
+              and flips <= tol["flip_share"] and float(diff.max()) <= 2 * lr)
+    res["ok"] = ok
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Least times on the card (the bound of a kernel's work)
+# ---------------------------------------------------------------------------
+
+# One H100 SXM (NVIDIA's data sheet, dense): bf16 / fp16 tensor-core peak and
+# HBM3 bandwidth; fp32 outside the tensor cores for fp32 kernels.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str = "bfloat16"):
+    """(least ms, "bytes" or "operations"): the larger of the bytes each
+    input read once and each output written once over HBM bandwidth, and
+    the operations over the peak rate of the type."""
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def _weights(L, HD, DI, V, es):
+    """Bytes of the stacked decode operands (weights, biases, layer norms
+    in fp32, the two embedding copies, r_w_bias / r_r_bias)."""
+    return (es * (L * (4 * HD * HD + 2 * HD * DI + DI + HD) + 2 * V * HD + V
+                  + 2 * HD) + 4 * 4 * L * HD)
+
+
+def _decode_keys(M: int, count: int, t: int) -> int:
+    """Keys token t of a chunk attends to (big slots and staged rows)."""
+    return M - min(M, max(M - count, t)) + t + 1
+
+
+def sampler_work(n, B, M, count, L=6, HD=500, DI=1000, V=310, es=2, t0=0):
+    """(bytes, flops) of n tokens of the decode chain from chunk step ``t0``
+    (K3 / K4 at 0; K5 is one token at ``t0``): the big K/V slots its first
+    token sees, the ``t0`` staged rows before it, the n rows it stages."""
+    big = M - min(M, max(M - count, t0))
+    nbytes = (es * (2 * L * B * big * HD + L * (M + 1) * HD)
+              + _weights(L, HD, DI, V, es) + 4 * n * B * V + 8 * B
+              + 4 * n * B * V + es * 2 * L * B * (t0 + n) * HD)
+    flops = B * sum(L * (2 * (4 * HD * HD + 2 * HD * DI)
+                         + 6 * HD * _decode_keys(M, count, t)) + 2 * HD * V
+                    for t in range(t0, t0 + n))
+    return nbytes, flops
+
+
+def chain_work(n, B, M, count, recompute, L=6, HD=500, DI=1000, V=310, H=10,
+               es=2):
+    """(bytes, flops) of one chunk's reverse chain (K6, or K7 with
+    ``recompute``): tokens n-1 .. 1 back through every layer, token 0's
+    softmax backward only. A layer's backward takes the two FF transposes
+    and five HD x HD products (the o, q, k and v transposes and the token's
+    query, which K7's forward has already made)."""
+    KL = M + n
+    nbytes = (es * (2 * L * B * KL * HD + L * (M + 1) * HD)
+              + _weights(L, HD, DI, V, es) + 4 * 3 * n * B * V)
+    if recompute:
+        nbytes += 4 * n * B
+    else:
+        nbytes += es * (3 * L * n * B * HD + L * n * B * DI) + 4 * L * B * H * n * KL
+    per_layer = 4 * HD * DI + (8 if recompute else 10) * HD * HD
+    fwd_layer = 4 * HD * HD + 4 * HD * DI
+    flops = 0
+    for t in range(1, n):
+        nk = M + t - min(M, max(M - count, t)) + 1     # lanes token t sees
+        layer = per_layer + 6 * HD * nk + (fwd_layer + 6 * HD * nk
+                                           if recompute else 0)
+        flops += B * (4 * HD * V + L * layer)
+    return nbytes, flops
+
+
+def attention_work(variant, q, B, M, count, same_length, backward=False,
+                   H=10, dh=50, es=2):
+    """(bytes, flops) of one K1f / K2f (or with ``backward`` K1b / K2b)
+    call: the scores the mask leaves open are counted, not the full grid."""
+    from .models.attention import build_attn_mask
+    mask = build_attn_mask(q, M, count, same_length)
+    nv = int((~mask).sum()) * H * B
+    if bool(mask.all()):                      # same_length at M 0: uniform
+        nv = mask.numel() * H * B
+    nv_cur = int((~mask[..., M:]).sum()) * H * B
+    klen = M + q
+    if variant == "v2":
+        ins = es * (4 * H * B * q * dh + 2 * H * B * M * dh + H * (M + 2 * q) * dh)
+        if not backward:
+            return ins + 4 * (H * B * q * dh + 2 * H * B * q), 2 * dh * 3 * nv
+        ins += 4 * (2 * H * B * q + 2 * H * B * q * dh)
+        outs = es * 4 * H * B * q * dh + 4 * H * (M + 2 * q) * dh
+        return ins + outs, 2 * dh * (6 * nv + 2 * nv_cur)
+    BH = B * H
+    ins = es * (BH * q * dh + 2 * BH * klen * dh + BH * q * klen)
+    if not backward:
+        return ins + 4 * (BH * q * dh + 2 * BH * q), 2 * dh * 2 * nv + nv
+    ins += 4 * (2 * BH * q + 2 * BH * q * dh)
+    outs = es * (BH * q * dh + 2 * BH * klen * dh + BH * q * klen)
+    return ins + outs, 2 * dh * 5 * nv
+
+
+def sdpa_case(q: int, B: int, M: int, count: int, same_length: bool,
+              H: int = 10, dh: int = 50, dtype=torch.bfloat16, seed: int = 0):
+    """``scaled_dot_product_attention`` on K2f's function: queries q + r_w_bias
+    [B, H, q, dh], keys and values [B, H, M + q, dh], the position term
+    BD x scale plus the mask as a float ``attn_mask``. Returns (fwd, fwd_bwd)
+    callables (timed beside K2f / K2b as the library yardstick; the port
+    never calls it)."""
+    from .models.attention import build_attn_mask
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    klen = M + q
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
+
+    qq, k, v = rnd(B, H, q, dh), rnd(B, H, klen, dh), rnd(B, H, klen, dh)
+    scale = 1.0 / dh ** 0.5
+    mask = build_attn_mask(q, M, count, same_length, device="cuda")[0]
+    bias = (rnd(B, H, q, klen).float() * scale).masked_fill(mask, float("-inf"))
+    if bool(mask.all(-1).any()):
+        bias = bias.masked_fill(mask, 0.0)   # every key masked: uniform
+    bias = bias.to(dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    grads = [t.detach().requires_grad_(True) for t in (qq, k, v, bias)]
+    do = torch.randn_like(qq)
+
+    def fwd():
+        return sdpa(qq, k, v, attn_mask=bias, scale=scale)
+
+    def fwd_bwd():
+        o = sdpa(*grads[:3], attn_mask=grads[3], scale=scale)
+        torch.autograd.grad(o, grads, do)
+
+    return fwd, fwd_bwd

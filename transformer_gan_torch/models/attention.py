@@ -55,7 +55,8 @@ def build_attn_mask(qlen: int, mem_len: int, count: int, same_length: bool,
 def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
                      attn_mask, n_head: int, d_head: int, *,
                      softmax_dtype=torch.float32, dropatt: float = 0.0,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None,
+                     detach_kv_cross: bool = False, with_prob: bool = False):
     """K/V-cached XL attention.
 
     w: [qlen, bsz, d_model] (pre-LN applied by the caller);
@@ -67,6 +68,13 @@ def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
     1 / (1 - dropatt) (the JAX package's bernoulli keep).
     Returns (attn_vec [qlen, bsz, n_head*d_head], k_cur [n_head, bsz, qlen,
     d_head], v_cur likewise).
+
+    ``detach_kv_cross``: the incremental-decoding gradient contract in one
+    batched pass (the GAN window recompute): every K/V lane is detached
+    except query i's own lane ``mem_len + i``, which stays live, so the
+    gradient reaches each token's K/V once; the position term is live on
+    every lane. ``with_prob`` appends the detached fp32 probabilities
+    [bsz, n_head, qlen, klen] (exact zeros on masked lanes).
     """
     qlen, bsz = w.shape[0], w.shape[1]
     klen = k_mem.shape[2] + qlen
@@ -85,8 +93,19 @@ def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
     else:
         r_head_k = (r @ r_w).reshape(klen, n_head, d_head)
 
+    k_used, v_used = (k.detach(), v.detach()) if detach_kv_cross else (k, v)
+    mem_len = k_mem.shape[2]
+    diag = None
     rw_q = q + r_w_bias.to(q.dtype)[None, :, None, :]
-    ac = rw_q @ k.transpose(-1, -2)                       # [b, h, q, klen]
+    ac = rw_q @ k_used.transpose(-1, -2)                  # [b, h, q, klen]
+    if detach_kv_cross:
+        # live self lane: a forward-neutral term carrying the k gradient on
+        # lane mem_len + i only (q's gradient already flows on every lane)
+        self_ac = (rw_q.detach() * k_cur).sum(-1)          # [b, h, q]
+        self_ac = self_ac - self_ac.detach()
+        diag = (torch.arange(klen, device=w.device)[None, :]
+                == mem_len + torch.arange(qlen, device=w.device)[:, None])
+        ac = ac + torch.where(diag, self_ac[..., None], ac.new_zeros(()))
     rr_q = q + r_r_bias.to(q.dtype)[None, :, None, :]
     bd = rel_shift(torch.einsum("bhid,jhd->bhij", rr_q,
                                 r_head_k.to(q.dtype)))
@@ -99,6 +118,13 @@ def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
         keep = torch.rand(prob.shape, generator=generator,
                           device=prob.device) < 1.0 - dropatt
         prob = torch.where(keep, prob / (1.0 - dropatt), 0.0)
-    ctx = prob.to(v.dtype) @ v                            # [b, h, q, d]
+    ctx = prob.to(v.dtype) @ v_used                       # [b, h, q, d]
+    if detach_kv_cross:
+        # live self lane for V: ctx_i += p[i, self] * (v_i - sg(v_i))
+        diag_p = torch.where(diag, prob, prob.new_zeros(())).sum(-1).detach()
+        ctx = ctx + diag_p.to(v.dtype)[..., None] * (v_cur - v_cur.detach())
     attn_vec = ctx.permute(2, 0, 1, 3).reshape(qlen, bsz, n_head * d_head)
-    return attn_vec, k_cur.transpose(0, 1), v_cur.transpose(0, 1)
+    out = (attn_vec, k_cur.transpose(0, 1), v_cur.transpose(0, 1))
+    if with_prob:
+        out = out + (prob.detach().to(torch.float32),)
+    return out

@@ -1,0 +1,117 @@
+"""RelGAN CNN discriminator, as functions on tensors.
+
+Counterpart of ``transformer_gan_tpu/models/discriminator.py``
+(``RelganConfig``, ``init_relgan_params``, ``relgan_logits``): a bias-free
+linear "embedding" of one-hot or soft vocab distributions, multi-
+representation Conv2d banks over (filter_size x emb_dim_single) windows with
+stride emb_dim_single, max-pool over time, a highway layer and one logit per
+representation. Parameters are a flat ``dict[str, Tensor]`` with the JAX
+tree's names (``embeddings``, ``convs.0.w``, ...), initialised bit for bit
+like the JAX package. Dropout draws from an explicit generator, or takes its
+uniform draws as an input.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DIS_FILTER_SIZES = (2, 3, 4, 5)
+DIS_NUM_FILTERS = (300, 300, 300, 300)
+
+
+@dataclasses.dataclass(frozen=True)
+class RelganConfig:
+    embed_dim: int = 64
+    num_rep: int = 64
+    vocab_size: int = 310
+    dropout: float = 0.25
+    init: str = "uniform"          # uniform | normal | truncated_normal
+    filter_sizes: tuple = DIS_FILTER_SIZES
+    num_filters: tuple = DIS_NUM_FILTERS
+    compute_dtype: str = "float32"
+
+    @property
+    def emb_dim_single(self) -> int:
+        return self.embed_dim // self.num_rep
+
+    @property
+    def feature_dim(self) -> int:
+        return sum(self.num_filters)
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+def _init_array(rng, shape, init: str) -> np.ndarray:
+    """Fan-in normal, U(-0.05, 0.05) or truncated normal (the JAX
+    package's draws, in its order)."""
+    stddev = 1.0 / np.sqrt(shape[0]) if len(shape) > 0 else 1.0
+    if init == "uniform":
+        return rng.uniform(-0.05, 0.05, size=shape)
+    if init == "normal":
+        return rng.normal(0.0, stddev, size=shape)
+    if init == "truncated_normal":
+        vals = rng.normal(0.0, stddev, size=shape + (4,))
+        idx = (np.abs(vals) < 2 * stddev).argmax(axis=-1)
+        return np.take_along_axis(vals, idx[..., None], axis=-1)[..., 0]
+    raise ValueError(init)
+
+
+def init_relgan_params(cfg: RelganConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    rng = np.random.RandomState(seed)
+
+    def t(shape):
+        a = np.asarray(_init_array(rng, shape, cfg.init), dtype=np.float32)
+        return torch.from_numpy(a)
+
+    params = {"embeddings": t((cfg.vocab_size, cfg.embed_dim)),
+              "highway_w": t((cfg.feature_dim, cfg.feature_dim)),
+              "highway_b": t((cfg.feature_dim,)),
+              "feature2out_w": t((cfg.feature_dim, 100)),
+              "feature2out_b": t((100,)),
+              "out2logits_w": t((100, 1)),
+              "out2logits_b": t((1,))}
+    for i, (n, f) in enumerate(zip(cfg.num_filters, cfg.filter_sizes)):
+        params[f"convs.{i}.w"] = t((n, 1, f, cfg.emb_dim_single))  # OIHW
+        params[f"convs.{i}.b"] = t((n,))
+    return params
+
+
+def dropout_shape(cfg: RelganConfig, bsz: int) -> tuple[int, int]:
+    """Shape of the features dropout acts on for ``bsz`` rows."""
+    return (bsz * cfg.num_rep, cfg.feature_dim)
+
+
+def relgan_logits(params, cfg: RelganConfig, inp: torch.Tensor, *,
+                  train: bool = False, generator: torch.Generator | None = None,
+                  dropout_u: torch.Tensor | None = None) -> torch.Tensor:
+    """inp: [bsz, seq_len, vocab] one-hot / soft -> logits [bsz * num_rep].
+    With ``train``, features are kept where a uniform draw (``dropout_u`` of
+    :func:`dropout_shape`, else drawn from ``generator``) is below
+    1 - dropout, and scaled by 1 / (1 - dropout)."""
+    cd = cfg.cdtype
+    emb = (inp.to(cd) @ params["embeddings"].to(cd))[:, None]  # NCHW
+    pools = []
+    for i in range(len(cfg.filter_sizes)):
+        out = F.conv2d(emb, params[f"convs.{i}.w"].to(cd),
+                       params[f"convs.{i}.b"].to(cd),
+                       stride=(1, cfg.emb_dim_single))
+        pools.append(torch.relu(out).amax(dim=2))        # [bsz, n, num_rep]
+    pred = torch.cat(pools, dim=1).transpose(1, 2).reshape(-1, cfg.feature_dim)
+    highway = pred @ params["highway_w"].to(cd) + params["highway_b"].to(cd)
+    gate = torch.sigmoid(highway)
+    pred = gate * torch.relu(highway) + (1.0 - gate) * pred
+    if train and cfg.dropout > 0 and (dropout_u is not None
+                                      or generator is not None):
+        if dropout_u is None:
+            dropout_u = torch.rand(pred.shape, generator=generator,
+                                   device=pred.device)
+        keep = dropout_u.to(pred.device) < 1.0 - cfg.dropout
+        pred = torch.where(keep, pred / (1.0 - cfg.dropout), 0.0)
+    pred = pred @ params["feature2out_w"].to(cd) + params["feature2out_b"].to(cd)
+    logits = pred @ params["out2logits_w"].to(cd) + params["out2logits_b"].to(cd)
+    return logits[:, 0]

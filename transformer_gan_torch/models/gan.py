@@ -1,0 +1,484 @@
+"""Transformer-GAN composite: gumbel straight-through sampling and the
+discriminator losses of one GAN batch (RelGAN CNN discriminator).
+
+Counterpart of ``transformer_gan_tpu/models/gan.py`` for ``dis_type: cnn``:
+
+* context priming with no gradient; chunk 0 carries the real context
+  one-hots at its head, later chunks seed from the detached last sample;
+* forward-only sampling (the dis phase, and the gen phase's trajectory) on
+  the fused sampler: K4 per 32-token chunk, or K5 per token
+  (``ops/decode.py``; their plain versions for CPU tensors);
+* the differentiable gen phase as in the JAX package: sample forward-only,
+  recompute each chunk's logits in one batched window pass
+  (``xl.decode_recompute_window``) and rebuild the straight-through
+  one-hots from the same noise. With full backprop through the sample
+  chain (``truncate_backprop`` False) the chunk goes through
+  :class:`_ChunkSTFullchain`, whose backward gets the logits cotangents Q
+  from the reverse chain (K6 on the window's residuals, K7 recomputing,
+  or the plain loop of single-position VJPs) and all parameter gradients
+  from one ``torch.autograd.grad`` over the window;
+* :func:`gen_scan_chunked`, the sequential differentiable sampler, is the
+  oracle path (``TPU.gan_fused_decode: off`` or ``TPU.gan_chain_bwd: off``).
+
+Random numbers are inputs: a :class:`Draws` object hands out the gumbel
+noise of each sampled chunk, the discriminator's dropout draws and the
+gradient penalty's interpolation weights, from an explicit
+``torch.Generator``; tests hand in other numbers (the JAX package's).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import chain_bwd as chain_ops
+from ..ops import decode as dec_ops
+from ..ops.decode_params import stack_decode_params
+from ..train.losses import get_losses, gradient_penalty
+from . import discriminator as disc_mod
+from . import xl
+
+# Tokens per sampling chunk: the big K/V cache is merged once per chunk.
+GEN_DECODE_CHUNK = 32
+GUMBEL_EPS = 1e-20
+
+
+@dataclasses.dataclass(frozen=True)
+class GanConfig:
+    """Static GAN-phase parameters (from cfg.DISCRIMINATOR / cfg.TPU). The
+    port samples on the chunked decode cache only (``config.check_gan_config``
+    refuses ``TPU.gan_decode_cache: rolling``)."""
+
+    dis_type: str = "cnn"
+    loss_type: str = "rsgan"
+    tgt_len: int = 64
+    mem_len: int = 64
+    context_len: int = 5
+    sample_chunks_mem: int = 1
+    truncate_backprop: bool = False
+    gen_loss_factor: float = 30.0
+    dis_loss_factor: float = 1.0
+    batch_chunk: int = 1
+    n_token: int = 310
+    # full-chain gen phase: "auto" / "kernel" the reverse chain on the
+    # window residuals (K6), "kernel_recompute" recomputing each token's
+    # forward (K7), "jnp" the plain loop of single-position VJPs, "off" the
+    # sequential sampler's own backward
+    chain_bwd: str = "auto"
+    # "auto" / "on": forward-only sampling on the fused sampler (K4 / K5);
+    # "off": the sequential sampler in every phase
+    fused_sampler: str = "auto"
+    # "kernel": the sampler and chain wrappers (their kernels on CUDA
+    # tensors); "plain": their plain versions on any device, the yardstick
+    # the kernel path is timed against (not a configuration key)
+    route: str = "kernel"
+
+    def __post_init__(self):
+        if self.dis_type != "cnn":
+            raise NotImplementedError(
+                f"DISCRIMINATOR.type {self.dis_type!r} is not ported yet "
+                "(the port runs the RelGAN CNN discriminator)")
+        if "ppo" in self.loss_type:
+            raise NotImplementedError("PPO losses are not ported yet")
+        if self.chain_bwd not in ("auto", "kernel", "kernel_recompute", "jnp",
+                                  "off"):
+            raise ValueError(f"unknown TPU.gan_chain_bwd {self.chain_bwd!r}")
+        if self.route not in ("kernel", "plain"):
+            raise ValueError(f"unknown route {self.route!r}")
+        if self.fused_sampler not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown TPU.gan_fused_decode {self.fused_sampler!r}")
+        if (self.fused_sampler == "off"
+                and self.chain_bwd in ("kernel", "kernel_recompute")):
+            raise ValueError(
+                "fused_sampler='off' forces the sequential sampler in every "
+                "phase, so the chain-backward kernel that chain_bwd="
+                f"{self.chain_bwd!r} asks for can never run")
+
+    @property
+    def sample_len(self) -> int:
+        return self.tgt_len // self.sample_chunks_mem
+
+    @property
+    def has_gp(self) -> bool:
+        return "gp" in self.loss_type
+
+    def chunk_lengths(self) -> list[int]:
+        """Tokens sampled per chunk (chunk 0 starts after the context)."""
+        return ([self.sample_len - self.context_len]
+                + [self.sample_len] * (self.sample_chunks_mem - 1))
+
+    @classmethod
+    def from_cfg(cls, cfg, n_token: int) -> "GanConfig":
+        d = cfg.DISCRIMINATOR
+        loss_type = d.BERT.loss_type if d.type == "bert" else d.CNN.loss_type
+        return cls(
+            dis_type=d.type, loss_type=loss_type, tgt_len=d.tgt_len,
+            mem_len=d.mem_len, context_len=d.context_len,
+            sample_chunks_mem=d.sample_chunks_mem,
+            truncate_backprop=d.truncate_backprop,
+            gen_loss_factor=float(d.gen_loss_factor),
+            dis_loss_factor=float(d.dis_loss_factor),
+            batch_chunk=d.batch_chunk, n_token=n_token,
+            fused_sampler=str(cfg.TPU.gan_fused_decode),
+            chain_bwd=str(cfg.TPU.gan_chain_bwd))
+
+
+# ---------------------------------------------------------------------------
+# Random numbers
+# ---------------------------------------------------------------------------
+
+def gumbel(u: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise from uniform draws, -log(-log(u + eps) + eps)."""
+    return -torch.log(-torch.log(u + GUMBEL_EPS) + GUMBEL_EPS)
+
+
+class Draws:
+    """The random numbers of one GAN micro-batch, drawn in order from
+    ``generator`` (on ``device``). ``chunk`` names the sampled chunk a draw
+    belongs to; this class ignores it, a subclass reproducing another
+    stream (the tests' JAX keys) uses it."""
+
+    def __init__(self, generator: torch.Generator, device=None):
+        self.generator = generator
+        self.device = device
+
+    def _uniform(self, shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator,
+                          dtype=torch.float32, device=self.device)
+
+    def gumbel(self, chunk: int, n: int, bsz: int, V: int) -> torch.Tensor:
+        """[n, bsz, V] fp32 noise of the chunk's n sampling steps."""
+        return gumbel(self._uniform((n, bsz, V)))
+
+    def dropout_u(self, chunk: int, shape) -> torch.Tensor:
+        """Uniform draws of the discriminator's dropout on the chunk."""
+        return self._uniform(shape)
+
+    def gp_alpha(self, chunk: int, bsz: int) -> torch.Tensor:
+        """[bsz, 1, 1] interpolation weights of the gradient penalty."""
+        return self._uniform((bsz, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+def _detached(params: dict) -> dict:
+    return {k: v.detach() for k, v in params.items()}
+
+
+@torch.no_grad()
+def prime_context(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
+                  data: torch.Tensor) -> xl.XLMems:
+    """No-grad context prime: the sampling memory after the first
+    context_len - 1 real tokens."""
+    mems = xl.init_mems(xcfg, gcfg.mem_len, data.shape[1], device=data.device)
+    if gcfg.context_len > 1:
+        _, mems = xl.forward_generate(_detached(gen_params), xcfg,
+                                      data[:gcfg.context_len - 1], mems)
+    return mems
+
+
+def prime_context_state(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
+                        data: torch.Tensor) -> xl.DecodeState:
+    """:func:`prime_context` as a decode state; its positional rows come
+    from the live parameters, so r_w gradients flow from every step."""
+    return xl.decode_state_from_mems(gen_params, xcfg,
+                                     prime_context(gen_params, xcfg, gcfg, data))
+
+
+def gen_scan_chunked(gen_params, xcfg: xl.XLConfig, temperature,
+                     state: xl.DecodeState, prev_onehot: torch.Tensor,
+                     detach_flags, g: torch.Tensor):
+    """Sequential straight-through sampling of len(detach_flags) tokens on
+    the chunked decode cache, differentiable (the oracle path).
+    ``detach_flags[t]`` stops the gradient through step t's input; g:
+    [n, bsz, V] noise. Returns (samples [n, bsz, V], state, last one-hot)."""
+    n_steps = len(detach_flags)
+    bsz, V = prev_onehot.shape
+    C = min(GEN_DECODE_CHUNK, n_steps)
+    prev, samples = prev_onehot, []
+    for s in range(0, n_steps, C):
+        n = min(C, n_steps - s)
+        stage = xl.init_decode_stage(xcfg, C, bsz, dtype=state.kv[0][1].dtype,
+                                     device=prev.device)
+        for t in range(n):
+            hard = F.one_hot(prev.argmax(-1), V).to(prev.dtype).detach()
+            inp = hard if detach_flags[s + t] else prev
+            logits, stage = xl.decode_chunk_step(
+                gen_params, xcfg, inp, state, stage, t, same_length=False,
+                detach_kv_writes=True)
+            prev = xl.gumbel_softmax_st(logits, temperature, g[s + t])
+            samples.append(prev)
+        state = xl.merge_decode_state(xcfg, state, stage, n)
+    return torch.stack(samples), state, prev
+
+
+def _sampler_operands(gen_params, xcfg: xl.XLConfig, mems: xl.XLMems):
+    """The fused sampler's operands: stacked weights, the big cache in the
+    memory's own layout, the positional projections [L, M+1, HD]."""
+    params = _detached(gen_params)
+    M = mems.hids.shape[4]
+    hd = xcfg.n_head * xcfg.d_head
+    R = xl.precompute_r_heads(params, xcfg, M + 1, mems.hids.device)
+    return (stack_decode_params(params, xcfg),
+            mems.hids.to(xcfg.cdtype).contiguous(),
+            R.reshape(xcfg.n_layer, M + 1, hd).to(xcfg.cdtype).contiguous())
+
+
+@torch.no_grad()
+def gen_scan_chunked_fused(stacked, xcfg: xl.XLConfig, kv: torch.Tensor,
+                           R: torch.Tensor, count: int, ids: torch.Tensor,
+                           g: torch.Tensor, plain: bool = False):
+    """Forward-only sampling of len(g) tokens on the fused sampler: one K4
+    call per chunk of up to 32 tokens, or one K5 call per token when the
+    chunk sampler is off (``TGTPU_CHUNK_SAMPLER=0``); their plain versions
+    with ``plain``. The staged rows merge into the cache after each chunk.
+    kv [L, 2, H, B, M, dh]; ids [B, 1]. Returns (one-hots [n, B, V], kv,
+    count, ids)."""
+    n_steps = g.shape[0]
+    L, _, H, B, M, dh = kv.shape
+    C = min(GEN_DECODE_CHUNK, n_steps)
+    if C > M:
+        raise ValueError(f"sampling chunk {C} exceeds mem_len {M}")
+    chunk_fn = (dec_ops.fused_decode_chunk_plain if plain
+                else dec_ops.fused_decode_chunk)
+    step_fn = (dec_ops.fused_decode_step_plain if plain
+               else dec_ops.fused_decode_step)
+    pieces = []
+    for s in range(0, n_steps, C):
+        n = min(C, n_steps - s)
+        if dec_ops.chunk_sampler_enabled():
+            ids, oh, staged = chunk_fn(stacked, xcfg, kv, R, ids, g[s:s + n],
+                                       count, n)
+        else:
+            staged = torch.zeros((L, 2, H, B, C, dh), dtype=kv.dtype,
+                                 device=kv.device)
+            ohs = []
+            for t in range(n):
+                ids, oh_t, staged = step_fn(stacked, xcfg, kv, R, staged, ids,
+                                            g[s + t], t, count)
+                ohs.append(oh_t)
+            oh = torch.stack(ohs)
+        kv = torch.cat([kv[..., n:, :], staged[..., :n, :]], dim=4).contiguous()
+        count = min(count + n, M)
+        pieces.append(oh)
+    return torch.cat(pieces), kv, count, ids
+
+
+def _sample_fake_chunks_fused(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
+                              data: torch.Tensor, noise, mems=None):
+    """Forward-only :func:`sample_fake_chunks` on the fused sampler."""
+    if mems is None:
+        mems = prime_context(gen_params, xcfg, gcfg, data)
+    stacked, kv, R = _sampler_operands(gen_params, xcfg, mems)
+    V, ctx, L_s = gcfg.n_token, gcfg.context_len, gcfg.sample_len
+    count = mems.count
+    ids = data[ctx - 1].to(torch.int32)[:, None]
+    chunks = []
+    for c, g in enumerate(noise):
+        samples, kv, count, ids = gen_scan_chunked_fused(
+            stacked, xcfg, kv, R, count, ids, g, plain=gcfg.route == "plain")
+        if c == 0:
+            real_ctx = F.one_hot(data[:ctx], V).float()
+            chunks.append((torch.cat([real_ctx, samples]), data[0:L_s]))
+        else:
+            chunks.append((samples, data[c * L_s:(c + 1) * L_s]))
+    return chunks
+
+
+def _window_st(params, xcfg: xl.XLConfig, inputs, k_mem, v_mem, count: int,
+               g, hard, temperature, collect_residuals: bool = False):
+    """Batched window forward and straight-through rebuild of one chunk:
+    (st, y, k_full, v_full, new_count[, residuals])."""
+    out = xl.decode_recompute_window(params, xcfg, inputs, k_mem, v_mem, count,
+                                     collect_residuals=collect_residuals)
+    y = torch.softmax((out[0].float() + g) / temperature, dim=-1)
+    st = (hard - y).detach() + y
+    return (st, y) + tuple(out[1:])
+
+
+class _ChunkSTFullchain(torch.autograd.Function):
+    """One chunk of straight-through samples with full backprop through the
+    sample chain, computed batched.
+
+    The K/V cache is detached every step, so the only sequential gradient
+    path is the straight-through chain input_{t+1} = hard_t + y_t - sg(y_t).
+    The backward therefore splits: the reverse chain carrying only the
+    input cotangent chi [b, V] gives each step's logits cotangent q_t
+    (softmax backward of m_t = s_t + chi_t; chi_{t-1} = J_t^T q_t with J_t
+    the single-position Jacobian d logits_t / d input_t), and all parameter
+    gradients come from one autograd pass over the window with
+    grad_outputs = Q."""
+
+    @staticmethod
+    def forward(ctx, xcfg, chain_impl, names, inputs, k_mem, v_mem, count, g,
+                hard, temperature, *flat_params):
+        params = dict(zip(names, flat_params))
+        st, y, kf, vf, _ = _window_st(params, xcfg, inputs, k_mem, v_mem,
+                                      count, g, hard, temperature)
+        kf, vf = torch.stack(kf), torch.stack(vf)
+        ctx.xcfg, ctx.chain_impl, ctx.names = xcfg, chain_impl, names
+        ctx.count, ctx.temperature = count, temperature
+        ctx.save_for_backward(inputs, k_mem, v_mem, g, hard, y, *flat_params)
+        ctx.mark_non_differentiable(kf, vf)
+        return st, kf, vf
+
+    @staticmethod
+    def backward(ctx, dst, _dkf, _dvf):
+        inputs, k_mem, v_mem, g, hard, y, *flat = ctx.saved_tensors
+        xcfg, impl = ctx.xcfg, ctx.chain_impl
+        leaves = [p.detach().requires_grad_() for p in flat]
+        params = dict(zip(ctx.names, leaves))
+        dst = dst.float()
+        with torch.enable_grad():
+            res = impl in ("auto", "kernel")
+            out = xl.decode_recompute_window(params, xcfg, inputs, k_mem, v_mem,
+                                             ctx.count, collect_residuals=res)
+            logits, kf, vf = out[0], torch.stack(out[1]), torch.stack(out[2])
+            args = (params, xcfg, kf, vf, inputs, dst, y, ctx.count,
+                    ctx.temperature)
+            if impl == "jnp":
+                Q = chain_ops.chain_bwd_q_plain(*args)
+            elif impl == "kernel_recompute":
+                Q = chain_ops.chain_bwd_q(*args)
+            else:
+                Q = chain_ops.chain_bwd_q_res(*args, out[4])
+            grads = torch.autograd.grad(logits, leaves,
+                                        grad_outputs=Q.to(logits.dtype),
+                                        allow_unused=True)
+        return (None,) * 10 + tuple(torch.zeros_like(p) if g is None else g
+                                    for p, g in zip(leaves, grads))
+
+
+def _sample_fake_chunks_recompute(gen_params, xcfg: xl.XLConfig,
+                                  gcfg: GanConfig, data: torch.Tensor,
+                                  temperature, noise):
+    """Differentiable :func:`sample_fake_chunks`: sample forward-only, then
+    recompute each chunk's logits batched and rebuild the straight-through
+    one-hots from the same noise (exact for truncate_backprop; the chain
+    terms through :class:`_ChunkSTFullchain` otherwise)."""
+    V, ctx, M = gcfg.n_token, gcfg.context_len, gcfg.mem_len
+    mems = prime_context(gen_params, xcfg, gcfg, data)
+    hard_chunks = _sample_fake_chunks_fused(gen_params, xcfg, gcfg, data,
+                                            noise, mems=mems)
+    k_mem = mems.hids[:, 0].to(xcfg.cdtype)          # [L, h, b, M, dh]
+    v_mem = mems.hids[:, 1].to(xcfg.cdtype)
+    count = mems.count
+    names = tuple(gen_params)
+    chain_impl = "jnp" if gcfg.route == "plain" else gcfg.chain_bwd
+    chunks = []
+    prev_hard = F.one_hot(data[ctx - 1], V).float()
+    for c, g in enumerate(noise):
+        hard = hard_chunks[c][0][ctx:] if c == 0 else hard_chunks[c][0]
+        inputs = torch.cat([prev_hard[None], hard[:-1]])
+        if gcfg.truncate_backprop:
+            st, _, kf, vf, _ = _window_st(gen_params, xcfg, inputs, k_mem, v_mem,
+                                          count, g, hard, temperature)
+            kf, vf = torch.stack(kf), torch.stack(vf)
+        else:
+            st, kf, vf = _ChunkSTFullchain.apply(
+                xcfg, chain_impl, names, inputs, k_mem, v_mem, count, g,
+                hard, float(temperature), *gen_params.values())
+        count = min(count + hard.shape[0], M)
+        k_mem, v_mem = kf[..., -M:, :], vf[..., -M:, :]
+        if c == 0:
+            st = torch.cat([F.one_hot(data[:ctx], V).float(), st])
+        chunks.append((st, hard_chunks[c][1]))
+        prev_hard = hard[-1]
+    return chunks
+
+
+def sample_fake_chunks(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
+                       data: torch.Tensor, temperature, noise,
+                       forward_only: bool = False):
+    """The per-chunk fakes of one GAN batch.
+
+    data: [tgt_len, bsz] real ids; noise: per chunk [n_c, bsz, V] gumbel
+    noise (:meth:`GanConfig.chunk_lengths`). Returns a list of (fake
+    [sample_len, bsz, V], real ids [sample_len, bsz]); chunk boundaries
+    detached. ``forward_only``: the caller does not differentiate through
+    the samples (the dis phase)."""
+    if gcfg.fused_sampler != "off":
+        if forward_only:
+            return _sample_fake_chunks_fused(gen_params, xcfg, gcfg, data, noise)
+        if (gcfg.sample_len <= gcfg.mem_len
+                and gcfg.sample_len - gcfg.context_len >= 1
+                and (gcfg.truncate_backprop or gcfg.chain_bwd != "off")):
+            return _sample_fake_chunks_recompute(gen_params, xcfg, gcfg, data,
+                                                 temperature, noise)
+    V, ctx, L_s = gcfg.n_token, gcfg.context_len, gcfg.sample_len
+    state = prime_context_state(gen_params, xcfg, gcfg, data)
+    real_ctx = F.one_hot(data[:ctx], V).float()
+    last = real_ctx[-1]
+    chunks = []
+    for c, g in enumerate(noise):
+        flags = [bool(gcfg.truncate_backprop)] * g.shape[0]
+        if c > 0:
+            flags[0] = True
+            last = last.detach()
+        samples, state, last = gen_scan_chunked(gen_params, xcfg, temperature,
+                                                state, last, flags, g)
+        if c == 0:
+            chunks.append((torch.cat([real_ctx, samples]), data[0:L_s]))
+        else:
+            chunks.append((samples, data[c * L_s:(c + 1) * L_s]))
+    return chunks
+
+
+# ---------------------------------------------------------------------------
+# Discriminator scoring and losses
+# ---------------------------------------------------------------------------
+
+def score_chunk(dis_params, dis_cfg, gcfg: GanConfig, real_ids, fake_soft, *,
+                train: bool = False, dropout_u=None):
+    """(d_out_real, d_out_fake) of one chunk, real and fake scored in one
+    discriminator call over [2b] rows. real_ids: [len, bsz];
+    fake_soft: [len, bsz, V]."""
+    real_soft = F.one_hot(real_ids.T, gcfg.n_token).to(fake_soft.dtype)
+    both = torch.cat([real_soft, fake_soft.transpose(0, 1)])
+    d_both = disc_mod.relgan_logits(dis_params, dis_cfg, both, train=train,
+                                    dropout_u=dropout_u)
+    half = d_both.shape[0] // 2            # num_rep scores per row
+    return d_both[:half], d_both[half:]
+
+
+def chunk_gradient_penalty(dis_params, dis_cfg, gcfg: GanConfig, real_ids,
+                           fake_soft, alpha):
+    """WGAN-GP on one-hot interpolates of one chunk."""
+    real = F.one_hot(real_ids.T, gcfg.n_token).float()
+    fake = fake_soft.transpose(0, 1).detach()
+    return gradient_penalty(
+        lambda x: disc_mod.relgan_logits(dis_params, dis_cfg, x), real, fake,
+        alpha)
+
+
+def gan_losses_for_batch(gen_params, dis_params, dis_cfg, xcfg, gcfg: GanConfig,
+                         data: torch.Tensor, temperature, draws: Draws, *,
+                         train_dis: bool) -> dict:
+    """Sample the fakes of one batch and score every chunk. Returns summed
+    (over chunks) gen_loss, dis_loss and gp_loss; the dis phase scores
+    detached fakes with discriminator dropout."""
+    bsz, V = data.shape[1], gcfg.n_token
+    noise = [draws.gumbel(c, n, bsz, V)
+             for c, n in enumerate(gcfg.chunk_lengths())]
+    chunks = sample_fake_chunks(gen_params, xcfg, gcfg, data, temperature,
+                                noise, forward_only=train_dis)
+    zero = torch.zeros((), dtype=torch.float32, device=data.device)
+    gen_loss, dis_loss, gp_loss = zero, zero, zero
+    for c, (fake, real_ids) in enumerate(chunks):
+        u = None
+        if train_dis:
+            fake = fake.detach()
+            u = draws.dropout_u(c, disc_mod.dropout_shape(dis_cfg, 2 * bsz))
+        d_real, d_fake = score_chunk(dis_params, dis_cfg, gcfg, real_ids, fake,
+                                     train=train_dis, dropout_u=u)
+        g, d = get_losses(d_real, d_fake, gcfg.loss_type)
+        gen_loss, dis_loss = gen_loss + g, dis_loss + d
+        if train_dis and gcfg.has_gp:
+            gp_loss = gp_loss + chunk_gradient_penalty(
+                dis_params, dis_cfg, gcfg, real_ids, fake,
+                draws.gp_alpha(c, bsz))
+    return {"gen_loss": gen_loss, "dis_loss": dis_loss, "gp_loss": gp_loss}

@@ -14,8 +14,12 @@ least ``FUSED_MIN_QLEN`` tokens take the fused kernels, CPU tensors the plain
 path; the forwards' ``route`` argument overrides it. Dropout draws from
 explicit generators (see :func:`xl_forward`).
 
-Not ported yet: the raw-hidden memory path (``cache_kv=False``), remat,
-note-status inputs, soft one-hot inputs and the gumbel heads.
+The GAN phases add soft one-hot inputs, the differentiable decode step
+(``detach_kv_writes``), the batched window recompute of a sampled chunk
+(:func:`decode_recompute_window`) and the straight-through gumbel head.
+
+Not ported yet: the raw-hidden memory path (``cache_kv=False``), remat and
+note-status inputs.
 """
 from __future__ import annotations
 
@@ -194,9 +198,11 @@ def positional_embedding(cfg: XLConfig, klen: int, device=None) -> torch.Tensor:
 
 
 def embed_input(params, cfg: XLConfig, inp: torch.Tensor) -> torch.Tensor:
-    """Token embedding of int ids [q, b] -> [q, b, d_model]."""
+    """Token embedding of int ids [q, b] or soft one-hots [q, b, V] (which
+    carry the straight-through gradients) -> [q, b, d_model]."""
     emb_w = params["word_emb"].to(cfg.cdtype)
-    return emb_w[inp] * (cfg.d_model ** 0.5)
+    emb = inp.to(cfg.cdtype) @ emb_w if inp.is_floating_point() else emb_w[inp]
+    return emb * (cfg.d_model ** 0.5)
 
 
 def attention_route(core_out: torch.Tensor, mem_len: int) -> str:
@@ -442,13 +448,28 @@ def merge_decode_state(cfg: XLConfig, state: DecodeState, stage: tuple,
                        r_heads=state.r_heads)
 
 
-@torch.no_grad()
+def _stage_write(buf: torch.Tensor, t: int, row: torch.Tensor) -> torch.Tensor:
+    """Row ``t`` of a staging buffer [b, C, hd] set to ``row``: in place when
+    no graph is recorded (generation), else on a copy, since an earlier
+    step's graph may hold the buffer."""
+    if torch.is_grad_enabled():
+        buf = buf.clone()
+    buf[:, t] = row.to(buf.dtype)
+    return buf
+
+
 def decode_chunk_step(params, cfg: XLConfig, inp: torch.Tensor,
                       state: DecodeState, stage: tuple, t: int, *,
-                      same_length: bool = True):
-    """One-token forward at chunk step ``t`` for ids [bsz]. Writes this
-    token's K/V into row ``t`` of ``stage`` in place and returns
-    (logits [bsz, V], stage)."""
+                      same_length: bool = True,
+                      detach_kv_writes: bool = False):
+    """One-token forward at chunk step ``t`` for ids [bsz] or soft one-hots
+    [bsz, V]. Writes this token's K/V into row ``t`` of ``stage`` and returns
+    (logits [bsz, V], stage); in place unless autograd records the step.
+
+    ``detach_kv_writes``: the staged K/V are written detached while this
+    step's own attention sees the live projections (the GAN sampling scan:
+    memory is detached after each step, gradients reach a token's K/V only
+    through its own attention)."""
     b, M, hd = state.kv[0][1].shape
     C = stage[0][0].shape[1]
     h, dh = cfg.n_head, cfg.d_head
@@ -465,6 +486,7 @@ def decode_chunk_step(params, cfg: XLConfig, inp: torch.Tensor,
     x = embed_input(params, cfg, inp[None])[0]                  # [b, hd]
     r_w_bias = params["r_w_bias"].to(cd)
     r_r_bias = params["r_r_bias"].to(cd)
+    new_stage = []
     for i in range(cfg.n_layer):
         layer = layer_params(params, i)
         if cfg.pre_lnorm:
@@ -473,8 +495,13 @@ def decode_chunk_step(params, cfg: XLConfig, inp: torch.Tensor,
             w_in = x
         q, k, v = (w_in @ layer["qkv_w"].to(cd)).chunk(3, dim=-1)
         sk, sv = stage[i]
-        sk[:, t] = k.to(sk.dtype)
-        sv[:, t] = v.to(sv.dtype)
+        sk = _stage_write(sk, t, k.detach() if detach_kv_writes else k)
+        sv = _stage_write(sv, t, v.detach() if detach_kv_writes else v)
+        new_stage.append((sk, sv))
+        if detach_kv_writes:
+            # the step's own slot sees the live K/V
+            sk = torch.cat([sk[:, :t], k[:, None].to(sk.dtype), sk[:, t + 1:]], 1)
+            sv = torch.cat([sv[:, :t], v[:, None].to(sv.dtype), sv[:, t + 1:]], 1)
         k_big, v_big = state.kv[i]
         qw = q.reshape(b, h, dh) + r_w_bias
         qr = q.reshape(b, h, dh) + r_r_bias
@@ -507,4 +534,90 @@ def decode_chunk_step(params, cfg: XLConfig, inp: torch.Tensor,
             x = out + ff
         else:
             x = layer_norm(out + ff, layer["ff_ln_scale"], layer["ff_ln_bias"])
-    return compute_logits(params, cfg, x), stage
+    return compute_logits(params, cfg, x), tuple(new_stage)
+
+
+def decode_recompute_window(params, cfg: XLConfig, inp: torch.Tensor, k_mem,
+                            v_mem, count: int, *,
+                            collect_residuals: bool = False):
+    """Batched recompute of ``n`` sequential :func:`decode_chunk_step`
+    forwards (``detach_kv_writes`` semantics) in one parallel pass.
+
+    inp: [n, bsz, V] one-hot inputs the steps saw (n <= mem_len); k_mem,
+    v_mem: per-layer [n_head, bsz, M, d_head] cache K/V at the window start
+    (detached); count: valid tail slots. Queries are live, every K/V lane
+    detached but each query's own, the position term live; query i sees big
+    lanes j >= max(M - count, i) and window lanes s <= i (the GAN's window,
+    ``same_length`` off).
+
+    Returns (logits [n, bsz, V], k_full, v_full, new_count): per-layer lane
+    buffers [n_head, bsz, M + n, d_head] = [mem || window K/V] (detached).
+    ``collect_residuals`` appends a dict of detached activations for the
+    chain backward: x / z1 / z2 [L, n, bsz, hd], ff_pre [L, n, bsz, d_inner],
+    prob [L, bsz, n_head, n, M + n] fp32."""
+    n, bsz, _ = inp.shape
+    h, dh = cfg.n_head, cfg.d_head
+    M = k_mem[0].shape[2]
+    if n > M:
+        raise ValueError(f"recompute window n={n} exceeds mem_len={M}")
+    cd = cfg.cdtype
+    dev = inp.device
+    x = embed_input(params, cfg, inp)                           # [n, b, hd]
+
+    i_q = torch.arange(n, device=dev)[:, None]
+    mask_big = torch.arange(M, device=dev)[None, :] < torch.clamp(
+        i_q, min=M - int(count))
+    mask_cur = torch.arange(n, device=dev)[None, :] > i_q        # n <= M
+    attn_mask = torch.cat([mask_big, mask_cur], dim=1)[None]
+    pos = positional_embedding(cfg, M + n, dev).to(cd)
+    r_w_bias = params["r_w_bias"].to(cd)
+    r_r_bias = params["r_r_bias"].to(cd)
+
+    new_k, new_v = [], []
+    res = {k: [] for k in ("x", "z1", "z2", "ff_pre", "prob")}
+    for i in range(cfg.n_layer):
+        layer = layer_params(params, i)
+        if cfg.pre_lnorm:
+            w_in = layer_norm(x, layer["attn_ln_scale"], layer["attn_ln_bias"])
+        else:
+            w_in = x
+        attn = rel_attention_kv(
+            w_in, k_mem[i], v_mem[i], pos, layer["qkv_w"].to(cd),
+            layer["r_w"].to(cd), r_w_bias, r_r_bias, attn_mask, h, dh,
+            softmax_dtype=cfg.sdtype, detach_kv_cross=True,
+            with_prob=collect_residuals)
+        attn_vec, k_cur, v_cur = attn[:3]
+        z1 = x + attn_vec @ layer["o_w"].to(cd)
+        if cfg.pre_lnorm:
+            out = z1
+            ff_in = layer_norm(out, layer["ff_ln_scale"], layer["ff_ln_bias"])
+        else:
+            out = layer_norm(z1, layer["attn_ln_scale"], layer["attn_ln_bias"])
+            ff_in = out
+        ff_pre = ff_in @ layer["ff_w1"].to(cd) + layer["ff_b1"].to(cd)
+        z2 = out + torch.relu(ff_pre) @ layer["ff_w2"].to(cd) + layer["ff_b2"].to(cd)
+        if collect_residuals:
+            for key, val in (("x", x), ("z1", z1), ("z2", z2),
+                             ("ff_pre", ff_pre), ("prob", attn[3])):
+                res[key].append(val.detach())
+        if cfg.pre_lnorm:
+            x = z2
+        else:
+            x = layer_norm(z2, layer["ff_ln_scale"], layer["ff_ln_bias"])
+        new_k.append(torch.cat([k_mem[i], k_cur.detach().to(k_mem[i].dtype)], 2))
+        new_v.append(torch.cat([v_mem[i], v_cur.detach().to(v_mem[i].dtype)], 2))
+
+    logits = compute_logits(params, cfg, x)
+    out = (logits, new_k, new_v, min(int(count) + n, M))
+    if collect_residuals:
+        out = out + ({k: torch.stack(v) for k, v in res.items()},)
+    return out
+
+
+def gumbel_softmax_st(logits: torch.Tensor, temperature, g: torch.Tensor):
+    """Straight-through gumbel-softmax with the noise ``g`` (the caller's
+    draws, see ``models/gan.gumbel``): forward value the one-hot of
+    argmax(y), gradient that of y = softmax((logits + g) / T)."""
+    y = torch.softmax((logits.float() + g) / temperature, dim=-1)
+    hard = torch.nn.functional.one_hot(y.argmax(-1), y.shape[-1]).to(y.dtype)
+    return (hard - y).detach() + y

@@ -68,15 +68,6 @@ def _reset_i32(reset, rows: int, device):
     return reset
 
 
-def _check_window(name: str, M: int, same_length: bool) -> None:
-    """same_length without memory masks every key of every row (the TPU
-    kernels then average all values uniformly); the CUDA kernels skip
-    masked keys and do not define that window."""
-    if same_length and M == 0:
-        raise ValueError(f"{name}: same_length with no memory masks every "
-                         "key; the kernels do not take that window")
-
-
 def _acc(dtype) -> torch.dtype:
     """Accumulation type of the plain versions: fp32, or fp64 for fp64."""
     return torch.promote_types(dtype, torch.float32)
@@ -170,7 +161,6 @@ def xl_attn_fwd_v2(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, count, reset,
     if rk.shape != (H, M + 2 * q, dh):
         raise ValueError(f"rk shape {tuple(rk.shape)} != {(H, M + 2 * q, dh)}")
     dev = qrw.device
-    _check_window("xl_attn_fwd_v2", M, same_length)
     _check_cuda("xl_attn_fwd_v2", qrw.dtype, dev, qrw=qrw, qrr=qrr,
                 k_mem=k_mem, v_mem=v_mem, k_cur=k_cur, v_cur=v_cur, rk=rk)
     reset_bh = _reset_i32(reset, B, dev)
@@ -403,7 +393,6 @@ def xl_attn_fwd_v1(q, k, v, bd, count, reset, scale: float,
     klen = k.shape[1]
     M = klen - qlen
     dev = q.device
-    _check_window("xl_attn_fwd_v1", M, same_length)
     _check_cuda("xl_attn_fwd_v1", q.dtype, dev, q=q, k=k, v=v, bd=bd)
     if k.shape != (BH, klen, dh) or v.shape != k.shape or \
             bd.shape != (BH, qlen, klen):

@@ -39,20 +39,21 @@ def supports_fused_generate(cfg, scfg, bsz: int, C: int) -> bool:
 
 
 class GenArgs(ctypes.Structure):
-    """Mirror of ``struct GenArgs`` in csrc/generate.cu."""
+    """Mirror of ``struct GenArgs`` in csrc/decode_chain.cuh (the chain of
+    K3, K4 and K5)."""
 
     _fields_ = (
         [(k, ctypes.c_int) for k in (
             "dtype", "n", "L", "B", "M", "HD", "DI", "H", "V", "pre_lnorm",
             "same_length", "technique", "topk", "exclude_bos", "num_empty",
-            "empty_token", "count")]
+            "empty_token", "count", "t0", "C")]
         + [("scale", ctypes.c_float), ("temperature", ctypes.c_float)]
         + [(k, ctypes.c_void_p) for k in (
             "kv", "R", "q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2",
             "fb2", "ln_as", "ln_ab", "ln_fs", "ln_fb", "rwb", "rrb", "emb",
             "emb_t", "crit_bias", "g", "ids", "er", "tokens", "staged",
             "logits_out", "x", "w_in", "q", "ctx", "attn", "out", "hid", "ff",
-            "logits")])
+            "logits", "onehot")])
 
 
 _STACKED = {"q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2", "fb2", "rwb",
@@ -121,7 +122,7 @@ def fused_generate_chunk(stacked, cfg, scfg, kv, R, ids, er, g, count,
         same_length=int(same_length), technique=TECHNIQUES[scfg.technique],
         topk=int(scfg.topk), exclude_bos=int(scfg.exclude_bos),
         num_empty=int(scfg.num_empty_to_ignore),
-        empty_token=int(scfg.empty_token), count=int(count),
+        empty_token=int(scfg.empty_token), count=int(count), t0=0, C=n,
         scale=1.0 / (cfg.d_head ** 0.5), temperature=float(scfg.temperature),
         kv=p(kv), R=p(R), q_w=p(stacked["q_w"]),
         k_w=p(stacked["k_w"]), v_w=p(stacked["v_w"]), o_w=p(stacked["o_w"]),
@@ -136,7 +137,7 @@ def fused_generate_chunk(stacked, cfg, scfg, kv, R, ids, er, g, count,
         **{k: p(v) for k, v in bufs.items()})
     lib = _native.lib()
     if ctypes.sizeof(GenArgs) != lib.tg_sizeof_gen_args():
-        raise RuntimeError("GenArgs layout differs from csrc/generate.cu")
+        raise RuntimeError("GenArgs layout differs from csrc/decode_chain.cuh")
     rc = lib.tg_generate_chunk(ctypes.byref(args), _native.stream_ptr(dev))
     _native.check(rc, "generate_chunk")
     _native.count_launch("generate_chunk")

@@ -7,13 +7,15 @@ Counterpart of ``transformer_gan_tpu/train/checkpoint.py``:
 * payload: model params, the optimizer state, and metadata
   (``train_step``, ``best_val_loss``, ``vocab``);
 * warm start (``TRAIN.load_from_previous``): generator params only,
-  non-strict (missing or mismatched names keep the fresh init).
+  non-strict (missing or mismatched names keep the fresh init);
+* the GAN payload: discriminator parameters and the gen / dis optimizer
+  states.
 
 A checkpoint ``NAME`` in the run directory is three files: ``NAME.pt``, the
 parameters in ``convert.FORMAT`` (what ``cli.generate`` reads as
 ``MODEL.checkpoint_name: NAME``), ``NAME.opt.pt`` (the fused optimizer
-state) and ``NAME.json`` (metadata). Each is written to a temporary file
-and renamed into place.
+state) and ``NAME.json`` (metadata), plus ``NAME.gan.pt`` for a GAN run.
+Each is written to a temporary file and renamed into place.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from .. import convert
 from .optim import FusedOptState
 
 OPT_FORMAT = "transformer_gan_torch.opt_state/1"
+GAN_FORMAT = "transformer_gan_torch.gan_state/1"
 
 
 def _paths(work_dir: str, name: str) -> tuple[str, str, str]:
@@ -39,15 +42,38 @@ def _atomic(path: str, write) -> None:
     os.replace(tmp, path)
 
 
+def _opt_dict(state: FusedOptState) -> dict:
+    return {"format": OPT_FORMAT, "count": int(state.count),
+            "mu": state.mu.detach().cpu(), "nu": state.nu.detach().cpu(),
+            "lr_scale": float(state.lr_scale)}
+
+
+def _opt_from_dict(payload, device=None) -> FusedOptState:
+    if not isinstance(payload, dict) or payload.get("format") != OPT_FORMAT:
+        raise ValueError(f"not a {OPT_FORMAT} payload")
+    return FusedOptState(count=int(payload["count"]),
+                         mu=payload["mu"].to(device),
+                         nu=payload["nu"].to(device),
+                         lr_scale=float(payload["lr_scale"]))
+
+
 def save_checkpoint(work_dir: str, name: str, params: dict,
-                    opt_state: FusedOptState, metadata: dict) -> str:
-    """Write checkpoint ``name``; returns the parameter file's path."""
+                    opt_state: FusedOptState, metadata: dict,
+                    gan: dict | None = None) -> str:
+    """Write checkpoint ``name`` (and its GAN payload ``gan``: dis_params,
+    gen_opt_state, optional dis_opt_state); returns the parameter file's
+    path."""
     p_path, o_path, m_path = _paths(work_dir, name)
     _atomic(p_path, lambda t: convert.save_params(t, params))
-    _atomic(o_path, lambda t: torch.save(
-        {"format": OPT_FORMAT, "count": int(opt_state.count),
-         "mu": opt_state.mu.detach().cpu(), "nu": opt_state.nu.detach().cpu(),
-         "lr_scale": float(opt_state.lr_scale)}, t))
+    _atomic(o_path, lambda t: torch.save(_opt_dict(opt_state), t))
+    if gan is not None:
+        _atomic(_gan_path(work_dir, name), lambda t: torch.save({
+            "format": GAN_FORMAT,
+            "dis_params": {k: v.detach().cpu().contiguous()
+                           for k, v in gan["dis_params"].items()},
+            **{k: _opt_dict(gan[k]) for k in ("gen_opt_state",
+                                              "dis_opt_state") if k in gan}},
+            t))
 
     def write_meta(t):
         with open(t, "w") as f:
@@ -60,14 +86,33 @@ def checkpoint_exists(work_dir: str, name: str) -> bool:
     return all(os.path.exists(p) for p in _paths(work_dir, name))
 
 
+def _gan_path(work_dir: str, name: str) -> str:
+    return os.path.join(os.path.abspath(work_dir), name) + ".gan.pt"
+
+
 def load_opt_state(path: str, device=None) -> FusedOptState:
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    if not isinstance(payload, dict) or payload.get("format") != OPT_FORMAT:
-        raise ValueError(f"{path} is not a {OPT_FORMAT} file")
-    return FusedOptState(count=int(payload["count"]),
-                         mu=payload["mu"].to(device),
-                         nu=payload["nu"].to(device),
-                         lr_scale=float(payload["lr_scale"]))
+    try:
+        return _opt_from_dict(payload, device)
+    except ValueError:
+        raise ValueError(f"{path} is not a {OPT_FORMAT} file") from None
+
+
+def load_gan_payload(work_dir: str, name: str, device=None) -> dict | None:
+    """The GAN payload of checkpoint ``name`` (None for an MLE checkpoint):
+    dis_params and the optimizer states as ``FusedOptState``."""
+    path = _gan_path(work_dir, name)
+    if not os.path.exists(path):
+        return None
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(payload, dict) or payload.get("format") != GAN_FORMAT:
+        raise ValueError(f"{path} is not a {GAN_FORMAT} file")
+    out = {"dis_params": {k: v.to(device)
+                          for k, v in payload["dis_params"].items()}}
+    for k in ("gen_opt_state", "dis_opt_state"):
+        if k in payload:
+            out[k] = _opt_from_dict(payload[k], device)
+    return out
 
 
 def load_metadata(work_dir: str, name: str) -> dict:

@@ -1,0 +1,174 @@
+"""GAN training phases for the RelGAN CNN discriminator.
+
+Counterpart of ``transformer_gan_tpu/train/gan_loop.py`` (``GanPhases``)
+for ``DISCRIMINATOR.type: cnn``: the discriminator phase (``dis_steps``
+updates over fresh real batches, gradients summed over the
+``batch_chunk`` micro-batches), the generator phase (one update of the
+trainer's own generator parameters), the logged losses and the
+checkpoint payload. Each phase's optimizer is clip, Adam, the base lr and
+a multiplier set from the phase's schedule at the training step
+(``train/optim.make_gan_optimizers``).
+
+The random numbers of a micro-batch come from :meth:`GanPhases._draws`, a
+``models/gan.Draws`` over the phases' own generator on the device.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+import torch
+
+from ..models import discriminator as disc_mod
+from ..models import gan as gan_mod
+from . import optim as topt
+from . import step as tstep
+
+
+class GanPhases:
+    """Owns the discriminator, the gen / dis optimizer states and the phase
+    steps; wired into ``train/loop.Trainer``. The trainer provides
+    ``xcfg``, ``vocab``, ``state`` (its flat generator parameters),
+    ``n_devices``, ``device`` and ``dis_iter``."""
+
+    def __init__(self, trainer, cfg):
+        self.cfg = cfg
+        self.trainer = trainer
+        self.xcfg = trainer.xcfg
+        self.device = trainer.device
+        self.temperature = 1.0
+        d = cfg.DISCRIMINATOR
+        self.gcfg = gan_mod.GanConfig.from_cfg(cfg, len(trainer.vocab))
+        self.dis_cfg = disc_mod.RelganConfig(
+            embed_dim=d.CNN.embed_dim, num_rep=d.CNN.num_rep,
+            vocab_size=len(trainer.vocab), init=d.CNN.init,
+            compute_dtype=cfg.TPU.compute_dtype)
+        params = disc_mod.init_relgan_params(self.dis_cfg, seed=17)
+        self.dis_layout = topt.FlatLayout.of(params)
+        self.dis_flat = self.dis_layout.flatten(params).to(self.device)
+        (self.gen_opt, self.gen_sched, self.dis_opt,
+         self.dis_sched) = topt.make_gan_optimizers(
+             cfg, trainer.state.layout, self.dis_layout, trainer.n_devices)
+        self.dis_opt_state = (None if d.freeze_discriminator
+                              else self.dis_opt.init(self.dis_flat))
+        self.gen_opt_state = self.gen_opt.init(trainer.state.flat.detach())
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(cfg.TRAIN.seed) + 777)
+        self._dis_stream = trainer.dis_iter()
+        self.log_gen_loss = self.log_dis_loss = 0.0
+        self.log_gen_num = self.log_dis_num = 0
+
+    # ------------------------------------------------------------------
+    def dis_params(self) -> dict:
+        return self.dis_layout.unflatten(self.dis_flat)
+
+    def _draws(self) -> gan_mod.Draws:
+        """The random numbers of the next micro-batch."""
+        return gan_mod.Draws(self.generator, self.device)
+
+    def _next_dis_batch(self) -> torch.Tensor:
+        """[batch_chunk, tgt_len, bsz / batch_chunk] real ids."""
+        data, _ = next(self._dis_stream)
+        chunked = tstep.chunk_batch(data, self.gcfg.batch_chunk)
+        return torch.from_numpy(chunked.copy()).to(self.device)
+
+    def _scale(self) -> float:
+        return 1.0 / (self.gcfg.batch_chunk * self.gcfg.sample_chunks_mem)
+
+    def dis_phase(self, train_step_num: int = 0) -> torch.Tensor | None:
+        """``dis_steps`` discriminator updates over fresh real batches (none
+        when the discriminator is frozen). Returns the last update's flat
+        gradient (before clipping)."""
+        if self.dis_opt_state is None:
+            return None
+        t0 = time.perf_counter()
+        gcfg = self.gcfg
+        self.dis_opt_state = topt.set_lr_multiplier(
+            self.dis_opt_state, float(self.dis_sched(train_step_num)))
+        gen_params = {k: v.detach()
+                      for k, v in self.trainer.state.params().items()}
+        for _ in range(self.cfg.DISCRIMINATOR.dis_steps):
+            data_c = self._next_dis_batch()
+            flat = self.dis_flat.detach().requires_grad_(True)
+            params = self.dis_layout.unflatten(flat)
+            grad = torch.zeros_like(self.dis_flat)
+            dsum = torch.zeros((), device=self.device)
+            for c in range(gcfg.batch_chunk):
+                losses = gan_mod.gan_losses_for_batch(
+                    gen_params, params, self.dis_cfg, self.xcfg, gcfg,
+                    data_c[c], self.temperature, self._draws(), train_dis=True)
+                total = ((losses["dis_loss"] + losses["gp_loss"])
+                         * gcfg.dis_loss_factor * self._scale())
+                grad += torch.autograd.grad(total, flat)[0]
+                dsum = dsum + losses["dis_loss"].detach()
+            self.dis_opt_state = self.dis_opt.update(self.dis_flat, grad,
+                                                     self.dis_opt_state)
+            # kept on the device until the log line
+            self.log_dis_loss = (self.log_dis_loss + dsum * gcfg.dis_loss_factor
+                                 / gcfg.sample_chunks_mem)
+            self.log_dis_num += gcfg.batch_chunk
+        logging.info("dis_phase step %d: %.2fs", train_step_num,
+                     time.perf_counter() - t0)
+        return grad
+
+    def gen_phase(self, train_step_num: int) -> torch.Tensor:
+        """One adversarial update of the trainer's generator parameters.
+        Returns its flat gradient (before clipping)."""
+        t0 = time.perf_counter()
+        gcfg = self.gcfg
+        state = self.trainer.state
+        self.gen_opt_state = topt.set_lr_multiplier(
+            self.gen_opt_state, float(self.gen_sched(train_step_num)))
+        data_c = self._next_dis_batch()
+        dis_params = {k: v.detach() for k, v in self.dis_params().items()}
+        grad = torch.zeros_like(state.flat, requires_grad=False)
+        gsum = torch.zeros((), device=self.device)
+        for c in range(gcfg.batch_chunk):
+            losses = gan_mod.gan_losses_for_batch(
+                state.params(), dis_params, self.dis_cfg, self.xcfg, gcfg,
+                data_c[c], self.temperature, self._draws(), train_dis=False)
+            total = losses["gen_loss"] * gcfg.gen_loss_factor * self._scale()
+            grad += torch.autograd.grad(total, state.flat)[0]
+            gsum = gsum + losses["gen_loss"].detach()
+        self.gen_opt_state = self.gen_opt.update(state.flat, grad,
+                                                 self.gen_opt_state)
+        self.log_gen_loss = (self.log_gen_loss + gsum * gcfg.gen_loss_factor
+                             / gcfg.sample_chunks_mem)
+        self.log_gen_num += gcfg.batch_chunk
+        logging.info("gen_phase step %d: %.2fs", train_step_num,
+                     time.perf_counter() - t0)
+        return grad
+
+    # ------------------------------------------------------------------
+    def pop_log_stats(self) -> tuple[float, float]:
+        g = (float(self.log_gen_loss) / self.log_gen_num
+             if self.log_gen_num else 0.0)
+        d = (float(self.log_dis_loss) / self.log_dis_num
+             if self.log_dis_num else 0.0)
+        self.log_gen_loss = self.log_dis_loss = 0.0
+        self.log_gen_num = self.log_dis_num = 0
+        return g, d
+
+    def ckpt_payload(self) -> dict:
+        """Discriminator parameters and both optimizer states (CPU)."""
+        payload = {"dis_params": {k: v.detach().cpu()
+                                  for k, v in self.dis_params().items()},
+                   "gen_opt_state": self.gen_opt_state}
+        if self.dis_opt_state is not None:
+            payload["dis_opt_state"] = self.dis_opt_state
+        return payload
+
+    def restore(self, payload: dict) -> None:
+        if "dis_params" in payload:
+            with torch.no_grad():
+                self.dis_flat.copy_(self.dis_layout.flatten(
+                    payload["dis_params"]).to(self.device))
+        if "gen_opt_state" in payload:
+            self.gen_opt_state = _to(payload["gen_opt_state"], self.device)
+        if "dis_opt_state" in payload:
+            self.dis_opt_state = _to(payload["dis_opt_state"], self.device)
+
+
+def _to(state: topt.FusedOptState, device) -> topt.FusedOptState:
+    return topt.FusedOptState(count=state.count, mu=state.mu.to(device),
+                              nu=state.nu.to(device), lr_scale=state.lr_scale)

@@ -1,12 +1,17 @@
-"""MLE training loop on one device (counterpart of
-``transformer_gan_tpu/train/loop.py`` without the GAN phases and the
-generation metrics).
+"""Training loop on one device (counterpart of
+``transformer_gan_tpu/train/loop.py`` without the generation metrics).
 
 Owns the run directory, seeding, the iterators, the step functions,
 logging (the JAX package's ``Train Step ...`` and ``Eval step ...`` lines),
 evaluation with a compensated NLL sum, last / best / step checkpoints,
-``--restart`` and the final best-checkpoint test evaluation. The device is
-CUDA when present, else the CPU (the plain path).
+``--restart`` and the final best-checkpoint test evaluation. With a
+discriminator configured (``DISCRIMINATOR.type: cnn``) the GAN phases run
+after the MLE step from ``start_iter`` on (``train/gan_loop.GanPhases``),
+with the temperature annealed per step, their losses on the log line and
+their state in the checkpoints.
+
+The device is the card: ``device=None`` means CUDA and raises without one;
+the CPU (the plain path) only when the caller passes ``"cpu"``.
 """
 from __future__ import annotations
 
@@ -18,19 +23,19 @@ import time
 import numpy as np
 import torch
 
-from ..config import is_null
+from .._native import resolve_device
+from ..config import check_gan_config, is_null
 from ..data.dataset import MusicDataset
 from ..models import xl
 from ..utils.logging import logging_config
 from . import checkpoint as ckpt
 from . import optim as topt
 from . import step as tstep
+from .losses import get_fixed_temperature
 
 
 def _refuse_unported(cfg) -> None:
-    if not is_null(cfg.DISCRIMINATOR.type):
-        raise NotImplementedError(
-            "GAN training (DISCRIMINATOR.type) is not ported yet")
+    check_gan_config(cfg)
     if (cfg.METRICS.use_bleu or cfg.METRICS.use_self_bleu
             or cfg.METRICS.CLASSIFIER.use_classifier):
         raise NotImplementedError(
@@ -51,8 +56,7 @@ class Trainer:
         self.cfg = cfg
         self.debug = debug
         self.save_all = save_all
-        self.device = torch.device(device or ("cuda" if torch.cuda.is_available()
-                                              else "cpu"))
+        self.device = resolve_device(device)
 
         if not restart:
             stamp = time.strftime("%Y%m%d-%H%M%S", time.localtime())
@@ -84,7 +88,12 @@ class Trainer:
         self.test_iter = self.dataset.eval_iterator(
             cfg.EVALUATE.batch_size, cfg.EVALUATE.tgt_length, split="test",
             local_rank=0, world_size=1)
-        if cfg.DISCRIMINATOR.start_iter < cfg.TRAIN.max_step:
+        self.has_gan = not is_null(cfg.DISCRIMINATOR.type)
+        if self.has_gan:
+            self.dis_iter = self.dataset.get_dis_iterator(
+                self.batch_size, cfg.DISCRIMINATOR.tgt_len, split="train",
+                do_shuffle=True, seed=seed)
+        elif cfg.DISCRIMINATOR.start_iter < cfg.TRAIN.max_step:
             raise ValueError("DISCRIMINATOR.start_iter < max_step but no "
                              "discriminator configured")
 
@@ -118,6 +127,10 @@ class Trainer:
             self.vocab.pad_id, use_mle=cfg.TRAIN.use_mle,
             same_length=cfg.MODEL.same_length)
         self.eval_step_fn = tstep.make_eval_step(self.xcfg, self.vocab.pad_id)
+        self.gan = None
+        if self.has_gan:
+            from .gan_loop import GanPhases
+            self.gan = GanPhases(self, cfg)
 
         self.train_step_num = 0
         self.best_val_nll = math.inf
@@ -134,8 +147,9 @@ class Trainer:
         meta = {"train_step": int(self.train_step_num),
                 "best_val_loss": float(val_nll),
                 "vocab": self.vocab.all_tokens}
-        path = ckpt.save_checkpoint(self.work_dir, name, self.state.params(),
-                                    self.state.opt_state, meta)
+        path = ckpt.save_checkpoint(
+            self.work_dir, name, self.state.params(), self.state.opt_state,
+            meta, gan=self.gan.ckpt_payload() if self.gan is not None else None)
         logging.info("Saved checkpoint to %s", path)
 
     def _restore_last(self) -> None:
@@ -146,6 +160,11 @@ class Trainer:
         with torch.no_grad():
             self.state.flat.copy_(self.state.layout.flatten(params))
         self.state.opt_state = opt_state
+        if self.gan is not None:
+            payload = ckpt.load_gan_payload(self.work_dir, "checkpoint_last",
+                                            self.device)
+            if payload is not None:
+                self.gan.restore(payload)
         self.train_step_num = int(meta.get("train_step", 0))
         self.best_val_nll = float(meta.get("best_val_loss", math.inf))
         self.state.step = self.train_step_num
@@ -186,10 +205,21 @@ class Trainer:
         log_start = time.time()
         logging.info("Start training")
         for data, target, reset_mems, _, _ in self.train_iter():
+            if self.gan is not None:
+                # temperature annealing: the generator's is 1 / beta
+                self.gan.temperature = 1.0 / get_fixed_temperature(
+                    cfg.DISCRIMINATOR.beta_max, self.train_step_num,
+                    cfg.TRAIN.max_step, cfg.DISCRIMINATOR.adapt)
             batch = (torch.from_numpy(tstep.chunk_batch(data, bc)).to(dev),
                      torch.from_numpy(tstep.chunk_batch(target, bc)).to(dev),
                      torch.from_numpy(tstep.chunk_rows(reset_mems, bc)).to(dev))
             self.state, metrics = self.train_step_fn(self.state, *batch)
+            d = cfg.DISCRIMINATOR
+            if self.gan is not None and self.train_step_num > d.start_iter:
+                if self.train_step_num % d.dis_loss_freq == 0:
+                    self.gan.dis_phase(self.train_step_num)
+                if self.train_step_num % d.gen_loss_freq == 0:
+                    self.gan.gen_phase(self.train_step_num)
             self.train_step_num += 1
             log_acc = (metrics if log_acc is None
                        else {k: log_acc[k] + metrics[k] for k in log_acc})
@@ -200,6 +230,8 @@ class Trainer:
                 gnorm = float(log_acc["grad_norm"])
                 log_acc = None
                 nll = loss_w / max(tokens, 1)
+                gan_stats = (self.gan.pop_log_stats() if self.gan is not None
+                             else (0.0, 0.0))
                 elapsed = time.time() - log_start
                 logging.info(
                     "Train Step %d/%d, lr=%f, tokens/s=%.1f, nll=%.4f,"
@@ -208,7 +240,8 @@ class Trainer:
                     self.train_step_num, cfg.TRAIN.max_step,
                     self.local_lr * self.schedule(self.train_step_num),
                     tokens / elapsed, nll, math.exp(min(nll, 50.0)),
-                    gnorm / (log_interval * self.n_devices), 0.0, 0.0)
+                    gnorm / (log_interval * self.n_devices), gan_stats[0],
+                    gan_stats[1])
                 log_start = time.time()
 
             if self.train_step_num % eval_interval == 0:

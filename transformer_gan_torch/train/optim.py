@@ -12,6 +12,10 @@ Counterpart of ``transformer_gan_tpu/train/optim.py``:
   ``ravel_pytree`` order (:func:`flat_names`), so ``mu``/``nu`` carry over
   between the two packages by plain copy (``convert.opt_state_*_jax``).
   The JAX package has no Pallas kernel for the update; it is plain torch.
+* the GAN phases' optimizers (``make_gan_optimizers``): clip, Adam, the base
+  lr, then a multiplier the host sets from the phase's schedule before each
+  phase (``set_lr_multiplier``), over the generator's and the
+  discriminator's flat vectors.
 """
 from __future__ import annotations
 
@@ -21,18 +25,15 @@ import math
 import torch
 
 
-def _layer_key(name: str):
-    parts = name.split(".")
-    if parts[0] == "layers":
-        return ("layers", int(parts[1]), parts[2])
-    return (name,)
+def _tree_key(name: str):
+    return tuple(int(p) if p.isdigit() else p for p in name.split("."))
 
 
 def flat_names(names) -> list[str]:
     """Parameter names in ``jax.flatten_util.ravel_pytree`` order: dict keys
-    sorted, the ``layers`` list in index order with each layer's keys
-    sorted."""
-    return sorted(names, key=_layer_key)
+    sorted, lists (``layers.3.qkv_w``, ``convs.0.w``) in index order with
+    each element's keys sorted."""
+    return sorted(names, key=_tree_key)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,3 +254,27 @@ def global_grad_norm(grads) -> torch.Tensor:
     if isinstance(grads, torch.Tensor):
         return grads.float().square().sum().sqrt()
     return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+
+
+def _no_schedule(step: int) -> float:
+    return 1.0
+
+
+def make_gan_optimizers(cfg, gen_layout: FlatLayout, dis_layout: FlatLayout,
+                        n_devices: int = 1):
+    """The generator's and the discriminator's GAN-phase optimizers with
+    their schedules: (gen_opt, gen_sched, dis_opt, dis_sched). Each is clip
+    by TRAIN.clip, Adam (eps 1e-8), the base lr (DISCRIMINATOR.gen_lr over
+    the device count; DISCRIMINATOR.CNN.learning_rate), then the mutable
+    multiplier, which the host sets to ``sched(train_step)`` before each
+    phase (the reference steps these schedulers every training step)."""
+    d = cfg.DISCRIMINATOR
+    gen_sched = make_schedule(d.gen_scheduler, d.gen_lr, cfg.TRAIN.max_step,
+                              d.gen_lr_min, d.gen_warmup_step)
+    dis_sched = make_schedule(d.dis_scheduler, d.dis_lr, cfg.TRAIN.max_step,
+                              d.dis_lr_min, d.dis_warmup_step)
+    gen_opt = FusedOptimizer("adam", d.gen_lr / max(1, int(n_devices)),
+                             _no_schedule, cfg.TRAIN.clip, layout=gen_layout)
+    dis_opt = FusedOptimizer("adam", d.CNN.learning_rate, _no_schedule,
+                             cfg.TRAIN.clip, layout=dis_layout)
+    return gen_opt, gen_sched, dis_opt, dis_sched
