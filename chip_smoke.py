@@ -12,7 +12,10 @@ Phases, one line each; any failure exits non-zero:
    forwards at M 4146, the attention backwards (K1b, K2b) and the forwards
    with dropout at q 128, M 0 and 1024, B 1, 8 and the training batch 128,
    K1f / K1b at the GAN config's MLE shape (q 512, M 128, B 64), the
-   same_length window without memory, the fused sampler (K3), the GAN's
+   same_length window without memory, bf16 K2f / K2b (tensor cores) at
+   ragged q 77 / 50 and, with the keys split across blocks, at M 4146 (B 1,
+   3, 8) against the plain combine of as many key ranges (the phase prints
+   the design and the splits), the fused sampler (K3), the GAN's
    gumbel sampler (K4, K5) and its reverse chain (K6, K7) at M 64;
 4. main path, generation: ``transformer_gan_torch.cli.generate.main`` on
    seeded full-width bf16 parameters, unconditional (8 lanes) and
@@ -34,7 +37,9 @@ Phases, one line each; any failure exits non-zero:
 7. numbers: us/token and events/s for generation, training tokens/s, the
    GAN phases' ms and sampled tokens/s, and every kernel's time against its
    plain version, its least time on the card (bound) and, where one
-   PyTorch call computes the same function, that call's time.
+   PyTorch call computes the same function, that call's time (K2f at
+   M 4146, B 1 and at the training shape q 128, B 128, M 0 against SDPA's
+   forward; K2b against SDPA's backward alone).
 
 The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -76,6 +81,7 @@ def main() -> None:
     try:
         from transformer_gan_torch import _native
         from transformer_gan_torch import kernel_check as kc
+        from transformer_gan_torch.ops import attention as attn_ops
     except ImportError as e:
         fail(f"the port is not beside this script: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -101,19 +107,32 @@ def main() -> None:
 
     # 3. kernels against their plain versions, full width
     errs = {"v2": {}, "v1": {}, "gen": {}}
+    splits, split_err, cases = {}, 0.0, 0
+    reset3 = torch.tensor([0, 1, 0], device="cuda", dtype=torch.int32)
+    grid = [(q, B, count, None) for q in (50, 128) for B in (1, 8)
+            for count in (0, 2000, kc.MEM_LEN)]
     for variant in ("v2", "v1"):
         for dtype in (torch.float32, torch.bfloat16):
-            for q in (50, 128):
-                for B in (1, 8):
-                    for count in (0, 2000, kc.MEM_LEN):
-                        res = kc.check_attention(variant, dtype, q, B, count)
-                        if not res["ok"]:
-                            fail(f"attention kernel disagrees: {res}")
-                        key = res["dtype"]
-                        errs[variant][key] = max(errs[variant].get(key, 0.0),
-                                                 res["max_abs_err"])
+            # K2f splits the keys at B 1, 3 and 8: the last case with reset rows
+            for q, B, count, reset in grid + [(128, 3, kc.MEM_LEN, reset3)]:
+                res = kc.check_attention(variant, dtype, q, B, count,
+                                         reset=reset)
+                cases += 1
+                if not res["ok"]:
+                    fail(f"attention kernel disagrees: {res}")
+                key = res["dtype"]
+                errs[variant][key] = max(errs[variant].get(key, 0.0),
+                                         res["max_abs_err"])
+                if "splits" in res:
+                    splits[f"q {q}, B {B}"] = res["splits"]
+                    split_err = max(split_err,
+                                    res.get("split_max_abs_err", 0.0))
     phase("kernels.attention", max_abs_err=errs["v2"],
-          v1_max_abs_err=errs["v1"], cases=48,
+          v1_max_abs_err=errs["v1"], cases=cases,
+          k2_design={str(d).split(".")[-1]: attn_ops.k2_design(d)
+                     for d in (torch.float32, torch.bfloat16)},
+          k2f_bf16_key_splits=splits,
+          k2f_split_vs_plain_combine_max_abs_err=split_err,
           tol={"float32": kc.ATTN_TOL_F32,
                "bfloat16": f"{kc.ATTN_REL_TOL_BF16} * max|o|"})
     bwd_errs = check_attention_bwd(kc)
@@ -165,16 +184,24 @@ def main() -> None:
     by_path = {k: {n: p[k] for n, p in paths.items()} for k in _native.LAUNCHES}
 
     def entry(name, source, replaces, key, f32, bf16, num):
-        return {"name": name, "route": "cuda",
-                "source": f"transformer_gan_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches[key],
-                "launches_by_path": by_path[key], "max_abs_err": f32,
-                "max_abs_err_bf16": bf16, "ms": num["ms"],
-                "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
-                "bound_by": num["bound_by"],
-                "library_ms": num.get("library_ms"),
-                "library_call": num.get("library_call"),
-                "shape": num.get("shape")}
+        e = {"name": name, "route": "cuda",
+             "source": f"transformer_gan_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches[key],
+             "launches_by_path": by_path[key], "max_abs_err": f32,
+             "max_abs_err_bf16": bf16, "ms": num["ms"],
+             "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
+             "bound_by": num["bound_by"],
+             "library_ms": num.get("library_ms"),
+             "library_call": num.get("library_call"),
+             "shape": num.get("shape")}
+        if key + "_tc" in launches:   # K2f / K2b: bf16 runs on the tensor cores
+            e["launches_tensor_core"] = launches[key + "_tc"]
+            e["source_fp32"] = "transformer_gan_torch/csrc/" + (
+                "attention.cu" if "fwd" in key else "attention_bwd.cu")
+        for k in ("other_shapes", "fwd_bwd_ms", "library_fwd_bwd_ms"):
+            if k in num:
+                e[k] = num[k]
+        return e
 
     v2f = [errs["v2"], bwd_errs["fwd_v2"], gan_attn["fwd_v2"]]
     v1f = [errs["v1"], bwd_errs["fwd_v1"], gan_attn["fwd_v1"]]
@@ -186,10 +213,10 @@ def main() -> None:
               "transformer_gan_tpu/ops/pallas_attention_v2.py:166",
               "xl_attn_bwd_v2", *worst([bwd_errs["v2"], gan_attn["v2"]]),
               numbers["bwd_v2"]),
-        entry("xl_attn_fwd_v1 (K2f)", "attention.cu",
+        entry("xl_attn_fwd_v1 (K2f)", "attention_v1_tc.cu",
               "transformer_gan_tpu/ops/pallas_attention.py:62",
               "xl_attn_fwd_v1", *worst(v1f), numbers["v1"]),
-        entry("xl_attn_bwd_v1 (K2b)", "attention_bwd.cu",
+        entry("xl_attn_bwd_v1 (K2b)", "attention_v1_tc_bwd.cu",
               "transformer_gan_tpu/ops/pallas_attention.py:98",
               "xl_attn_bwd_v1", *worst([bwd_errs["v1"], gan_attn["v1"]]),
               numbers["bwd_v1"]),
@@ -364,11 +391,12 @@ def measure(kc, card: str) -> dict:
                         "bound_by": by,
                         "shape": f"q 128, B 1, M {kc.MEM_LEN}, bf16"}
         if variant == "v1":
-            fwd, _ = kc.sdpa_case(128, 1, kc.MEM_LEN, kc.MEM_LEN, True)
+            fwd, _, _ = kc.sdpa_case(128, 1, kc.MEM_LEN, kc.MEM_LEN, True)
             res[variant]["library_ms"] = kc.time_ms(fwd, 20)
             res[variant]["library_call"] = (
                 "scaled_dot_product_attention(q + r_w_bias, k, v, attn_mask="
                 "BD * scale + mask), forward")
+            res[variant]["other_shapes"] = [measure_k2f_train_shape(kc, card)]
         else:
             res[variant]["library_ms"] = None
             res[variant]["library_call"] = (
@@ -378,6 +406,27 @@ def measure(kc, card: str) -> dict:
               bound_ms=bound, bound_by=by,
               library_ms=res[variant]["library_ms"])
     return res
+
+
+def measure_k2f_train_shape(kc, card: str) -> dict:
+    """K2f at the shape the port routes it: the MLE step at mem 0 (q 128,
+    B 128, M 0, bf16), against its plain version and SDPA's forward."""
+    kernel, plain, args = kc.attention_case("v1", torch.bfloat16, 128,
+                                            B_TRAIN, 0, M=0,
+                                            same_length=False)
+    ms, plain_ms = kc.time_in_turns(lambda: kernel(*args),
+                                    lambda: plain(*args), iters=20)
+    bound, by = kc.bound_ms(*kc.attention_work("v1", 128, B_TRAIN, 0, 0,
+                                               False))
+    fwd, _, _ = kc.sdpa_case(128, B_TRAIN, 0, 0, False)
+    line = {"shape": f"q 128, B {B_TRAIN}, M 0, bf16", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": kc.time_ms(fwd, 20),
+            "library_call": "scaled_dot_product_attention forward"}
+    phase("numbers.attention_v1_train_shape", card=card, **line)
+    del args
+    torch.cuda.empty_cache()
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +443,8 @@ def check_attention_bwd(kc) -> dict:
     """K1b and K2b against their plain versions, and K1f / K2f with
     dropout, at full width (H 10, dh 50), q 128: B 1 and 8 over the M /
     count grid, a reset case at B 3, and the training op-point's B 128
-    (K1b at M 1024 with a full ring, K2b at M 0; dropatt 0.1)."""
+    (K1b at M 1024 with a full ring, K2b at M 0; dropatt 0.1); K2f / K2b
+    also at ragged q 77 and 50 (klen 377 and 350)."""
     errs = {k: {} for k in ("v2", "v1", "fwd_v2", "fwd_v1")}
     op_point = {}
     cases = 0
@@ -437,6 +487,20 @@ def check_attention_bwd(kc) -> dict:
                 k: v["max_abs_err"] for k, v in res["grads"].items()}
             del res
             torch.cuda.empty_cache()
+    # K2f / K2b at ragged shapes: q 77 with an odd klen (377), q 50 with a
+    # klen (350) that is no multiple of the tensor-core kernels' 64-key tiles
+    for dtype in (torch.float32, torch.bfloat16):
+        for q, B, M, count, sl in ((77, 3, 300, 120, True),
+                                   (50, 2, 300, 300, False)):
+            res = kc.check_attention_bwd("v1", dtype, q, B, count, M,
+                                         rate=0.1, same_length=sl)
+            cases += 1
+            if not res["ok"]:
+                fail(f"attention backward disagrees (ragged q {q}): {res}")
+            g = max(v["max_abs_err"] for v in res["grads"].values())
+            errs["v1"][res["dtype"]] = max(errs["v1"][res["dtype"]], g)
+            errs["fwd_v1"][res["dtype"]] = max(errs["fwd_v1"][res["dtype"]],
+                                               res["o_max_abs_err"])
     torch.cuda.synchronize()
     phase("kernels.attention_bwd", cases=cases, op_point_B=B_TRAIN,
           op_point_grad_max_abs_err=op_point, grad_max_abs_err={
@@ -534,7 +598,8 @@ def run_train_path(_native) -> tuple[dict, str]:
             ("mem0_random_crop", {**TRAIN_OVERRIDES, "max_step": 2,
                                   "log_interval": 1, "eval_interval": 2,
                                   "mem_length": 0, "random_crop": True},
-             ("xl_attn_fwd_v1", "xl_attn_bwd_v1"))):
+             ("xl_attn_fwd_v1", "xl_attn_bwd_v1", "xl_attn_fwd_v1_tc",
+              "xl_attn_bwd_v1_tc"))):
         cfg = _train_cfg_file(work, f"{name}.yml", **train)
         torch.cuda.synchronize()
         _native.reset_launches()
@@ -682,11 +747,12 @@ def measure_train(kc, card: str) -> dict:
             variant, torch.bfloat16, tgt, B, M, M, rate=0.1)
         o, m, l = fwd(*fa, **kw)
         args = ba(o, m, l)
+        iters = 3 if variant == "v2" else 20
         pair = kc.time_in_turns(lambda: bwd(*ba(*fwd(*fa, **kw)), **kw),
                                 lambda: bwd_p(*ba(*fwd_p(*fa, **kw)), **kw),
-                                iters=3)
+                                iters=iters)
         b_ms = kc.time_in_turns(lambda: bwd(*args, **kw),
-                                lambda: bwd_p(*args, **kw), iters=3)
+                                lambda: bwd_p(*args, **kw), iters=iters)
         shape = f"q {tgt}, B {B}, M {M}, bf16, dropatt 0.1"
         bound, by = kc.bound_ms(*kc.attention_work(variant, tgt, B, M, M,
                                                    False, backward=True))
@@ -695,18 +761,23 @@ def measure_train(kc, card: str) -> dict:
                                  "library_ms": None, "shape": shape,
                                  "library_call": "none: the position term "
                                  "comes from rk inside the kernel"}
-        lib = None
+        lib = lib_pair = None
         if variant == "v1":
-            _, fwd_bwd = kc.sdpa_case(tgt, B, M, M, False)
-            lib = kc.time_ms(fwd_bwd, 3)
-            res["bwd_v1"].update(library_ms=lib, library_call=(
-                "scaled_dot_product_attention forward + backward at dropout "
-                "0 (against K2f + K2b's fwd_bwd_ms)"))
+            _, fwd_bwd, sdpa_bwd = kc.sdpa_case(tgt, B, M, M, False)
+            lib_pair = kc.time_ms(fwd_bwd, 20)
+            lib = kc.time_ms(sdpa_bwd, 20)
+            res["bwd_v1"].update(
+                library_ms=lib, fwd_bwd_ms=pair[0],
+                library_fwd_bwd_ms=lib_pair, library_call=(
+                    "scaled_dot_product_attention backward alone "
+                    "(torch.autograd.grad on a kept forward) at dropout 0; "
+                    "library_fwd_bwd_ms: its forward + backward against "
+                    "K2f + K2b's fwd_bwd_ms"))
         phase(f"numbers.train_attention_{variant}", q=tgt, B=B, M=M,
               dtype="bfloat16", card=card, fwd_bwd_ms=pair[0],
               fwd_bwd_plain_ms=pair[1], bwd_ms=b_ms[0],
               bwd_plain_ms=b_ms[1], bwd_bound_ms=bound, bound_by=by,
-              sdpa_fwd_bwd_ms=lib)
+              sdpa_bwd_ms=lib, sdpa_fwd_bwd_ms=lib_pair)
         del o, m, l, args
     torch.cuda.empty_cache()
 

@@ -7,7 +7,8 @@ at a shortened memory, plus one case at the full M 4146; the tolerances are
 those of transformer_gan_torch.kernel_check. The backward kernels (K1b, K2b)
 and the forwards with dropout are checked with and without dropout and
 reset rows, in fp32 and bf16; the same_length window without memory; the
-GAN sampler (K4, K5) and reverse chain (K6, K7) at M 64, B 8, 24 and 64,
+bf16 tensor-core K2f / K2b at ragged shapes, with split keys at M 4146 and
+at the training batch; the GAN sampler (K4, K5) and reverse chain (K6, K7) at M 64, B 8, 24 and 64,
 with an odd count."""
 
 import pytest
@@ -114,6 +115,67 @@ def test_kernels_average_a_window_with_every_key_masked(cuda, variant, dtype):
     assert fwd["ok"], fwd
     res = kc.check_attention_bwd(variant, dtype, 37, 3, 0, 0, same_length=True)
     assert res["ok"], res
+
+
+# ---------------------------------------------------------------------------
+# K2f / K2b in bf16: the tensor-core kernels (split-key forward)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("q,B,M,count,same_length", [
+    (50, 2, 300, 300, False),   # klen 350: not a multiple of 64
+    (77, 2, 300, 120, True),    # odd klen 377: 2-byte loads, ragged rows
+    (77, 3, 0, 0, False),       # no memory, one ragged query tile
+])
+def test_tc_attention_ragged_shapes(cuda, q, B, M, count, same_length, rate):
+    fwd = kc.check_attention("v1", torch.bfloat16, q, B, count, M=M,
+                             same_length=same_length)
+    assert fwd["ok"], fwd
+    res = kc.check_attention_bwd("v1", torch.bfloat16, q, B, count, M,
+                                 rate=rate, same_length=same_length)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("B,count,reset", [
+    (1, 0, None), (1, 2000, None), (1, kc.MEM_LEN, None),
+    (3, kc.MEM_LEN, [0, 1, 0]),
+])
+def test_tc_forward_splits_the_keys_at_the_prime_shape(cuda, B, count, reset):
+    """M 4146 at B 1 and 3 leaves the card under-filled: the keys are split
+    and merged by the combine kernel, checked against the plain version and
+    the plain combine of as many key ranges."""
+    if reset is not None:
+        reset = torch.tensor(reset, device=cuda, dtype=torch.int32)
+    res = kc.check_attention("v1", torch.bfloat16, 128, B, count,
+                             reset=reset)
+    assert res["splits"] > 1, res
+    assert res["ok"], res
+
+
+def test_tc_split_forward_is_deterministic(cuda):
+    kernel, _, args = kc.attention_case("v1", torch.bfloat16, 128, 1,
+                                        kc.MEM_LEN)
+    first = kernel(*args)
+    again = kernel(*args)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_tc_backward_at_the_training_shape(cuda):
+    """B 128, M 0, dropatt 0.1: the shape the MLE step at mem 0 runs."""
+    res = kc.check_attention_bwd("v1", torch.bfloat16, 128, 128, 0, 0,
+                                 rate=0.1)
+    assert res["ok"], res
+
+
+def test_bf16_k2_runs_the_tensor_core_kernels(cuda):
+    _native.reset_launches()
+    kc.check_attention_bwd("v1", torch.bfloat16, 16, 1, 0, 8)
+    kc.check_attention_bwd("v1", torch.float32, 16, 1, 0, 8)
+    assert _native.LAUNCHES["xl_attn_fwd_v1"] == 2
+    assert _native.LAUNCHES["xl_attn_bwd_v1"] == 2
+    assert _native.LAUNCHES["xl_attn_fwd_v1_tc"] == 1
+    assert _native.LAUNCHES["xl_attn_bwd_v1_tc"] == 1
 
 
 # ---------------------------------------------------------------------------

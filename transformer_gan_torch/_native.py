@@ -32,8 +32,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo"]
 
 # kernel name -> launches since the last reset_launches()
+# (the "_tc" entries count the bf16 K2f / K2b calls that ran the
+# tensor-core kernels, a subset of the calls of the plain names)
 LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
                             "xl_attn_bwd_v2": 0, "xl_attn_bwd_v1": 0,
+                            "xl_attn_fwd_v1_tc": 0, "xl_attn_bwd_v1_tc": 0,
                             "generate_chunk": 0, "decode_chunk": 0,
                             "decode_step": 0, "chain_bwd_res": 0,
                             "chain_bwd_recompute": 0}
@@ -132,7 +135,7 @@ def lib() -> ctypes.CDLL:
             handle.tg_xl_attn_fwd.argtypes = [
                 i32, i32, vp, vp, vp, vp, i64, vp, vp, i64, vp, vp, vp,
                 vp, vp, vp, i32, i32, i32, i32, i32, i32, f32, i32, u32, u32,
-                f32, vp]
+                f32, vp, i32, vp]
             handle.tg_xl_attn_fwd.restype = i32
             handle.tg_xl_attn_bwd.argtypes = [vp, vp]
             handle.tg_xl_attn_bwd.restype = i32

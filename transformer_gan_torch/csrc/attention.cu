@@ -5,7 +5,10 @@
 //     term BD[i, j] = qrr[i] . rk[q-1-i+j] is computed in the kernel
 //     (BD_IN = false; the prime and the debug re-prime of generation use it);
 //   * pallas_attention._fwd_kernel (reached through _fused_fwd_raw): BD is
-//     read from a precomputed [BH, q, klen] input (BD_IN = true).
+//     read from a precomputed [BH, q, klen] input (BD_IN = true). Only the
+//     fp32 K2f runs here (the exact on-card reference of the fp32 checks);
+//     tg_xl_attn_fwd sends bf16 K2f to the tensor-core kernel of
+//     attention_v1_tc.cu.
 // Both write o = softmax(S) V in fp32 and the row max m and row sum l of the
 // unnormalised exponentials, with the mask of pallas_attention._mask_block
 // (memory valid count, per-row reset, same_length band; same_length without
@@ -29,6 +32,7 @@
 // reads) and each lane keeps up to four output columns (d_head <= 128).
 // Tensor-core MMA, TMA and splitting the keys across blocks are left for
 // later work.
+#include "attention_args.cuh"
 #include "common.cuh"
 
 namespace {
@@ -220,7 +224,10 @@ int launch(const void* qrw, const void* qrr, const void* kmem, const void* vmem,
 // the in-kernel-BD form; any [BH, ...] order for the BD-input form.
 // Memory K/V of block bh start at kmem + bh * mem_bh, current K/V at
 // kcur + bh * cur_bh; rows are dh apart. reset may be null (no reset rows).
-// Dropout: thr = 0 keeps everything (rate must then be 0).
+// Dropout: thr = 0 keeps everything (rate must then be 0). bf16 with BD
+// input (K2f) runs the tensor-core kernel, which takes k, v as one
+// [BH, M + q, dh] array at kmem, splits the keys into n_split ranges and
+// merges them through the fp32 scratch `part` (null when n_split is 1).
 extern "C" int tg_xl_attn_fwd(int dtype, int bd_in, const void* qrw, const void* qrr,
                               const void* kmem, const void* vmem, long long mem_bh,
                               const void* kcur, const void* vcur, long long cur_bh,
@@ -228,13 +235,17 @@ extern "C" int tg_xl_attn_fwd(int dtype, int bd_in, const void* qrw, const void*
                               void* o, void* m, void* l, int BH, int B, int q, int M,
                               int dh, int count, float scale, int same_length,
                               unsigned int seed, unsigned int thr, float rate,
-                              void* stream) {
+                              void* part, int n_split, void* stream) {
   if (dh > 32 * kMaxDPL || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto rs = static_cast<const int*>(reset);
   auto fo = static_cast<float*>(o);
   auto fm = static_cast<float*>(m);
   auto fl = static_cast<float*>(l);
+  if (dtype == 1 && bd_in)
+    return xl_attn_fwd_v1_tc(qrw, kmem, vmem, bd, rs, fo, fm, fl,
+                             static_cast<float*>(part), BH, q, M, dh, count, scale,
+                             same_length, seed, thr, rate, n_split, st);
   if (dtype == 0 && bd_in)
     return launch<float, true>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh, rk, bd,
                                rs, fo, fm, fl, BH, B, q, M, dh, count, scale,
@@ -243,10 +254,6 @@ extern "C" int tg_xl_attn_fwd(int dtype, int bd_in, const void* qrw, const void*
     return launch<float, false>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh, rk, bd,
                                 rs, fo, fm, fl, BH, B, q, M, dh, count, scale,
                                 same_length, seed, thr, rate, st);
-  if (dtype == 1 && bd_in)
-    return launch<__nv_bfloat16, true>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh,
-                                       rk, bd, rs, fo, fm, fl, BH, B, q, M, dh, count,
-                                       scale, same_length, seed, thr, rate, st);
   if (dtype == 1)
     return launch<__nv_bfloat16, false>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh,
                                         rk, bd, rs, fo, fm, fl, BH, B, q, M, dh, count,

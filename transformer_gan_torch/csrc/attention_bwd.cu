@@ -8,7 +8,9 @@
 //     batch;
 //   * pallas_attention._bwd_kernel (reached through _fused_bwd_raw), K2b: BD
 //     is an input (BD_IN = true); outputs dq, dk and dv over all keys, and
-//     dbd = dS * scale.
+//     dbd = dS * scale. Only the fp32 K2b runs here (the exact on-card
+//     reference of the fp32 checks); tg_xl_attn_bwd sends bf16 K2b to the
+//     tensor-core kernels of attention_v1_tc_bwd.cu.
 // Both recompute P = exp(S - m) / l from the forward's row max and sum, draw
 // the forward's dropout mask again from the (seed, bh, i, j) hash, and use
 // dS = P * (dP - D) with D_i = do_i . o_i, which equals rowsum(dP * P) with
@@ -43,47 +45,8 @@
 // Every kernel recomputes the scores it needs; nothing score-sized is
 // written to device memory (except K2b's dbd output). Tensor-core MMA and
 // fusing the three passes are left for later work.
+#include "attention_args.cuh"
 #include "common.cuh"
-
-// Arguments of tg_xl_attn_bwd (mirrored by ops/attention._BwdArgs).
-struct BwdArgs {
-  const void* qrw;
-  const void* qrr;
-  const void* kmem;
-  const void* vmem;
-  const void* kcur;
-  const void* vcur;
-  const void* rk;
-  const void* bd;
-  const int* reset;
-  const float* m;
-  const float* l;
-  const float* o;
-  const float* dout;
-  void* dq;
-  void* dqr;
-  void* dk;
-  void* dv;
-  void* dbd;
-  float* drk_part;
-  float* drk;
-  long long mem_bh;
-  long long cur_bh;
-  int dtype;
-  int bd_in;
-  int BH;
-  int B;
-  int q;
-  int M;
-  int dh;
-  int count;
-  int same_length;
-  int n_split;
-  unsigned int seed;
-  unsigned int thr;
-  float scale;
-  float rate;
-};
 
 namespace {
 
@@ -584,16 +547,17 @@ extern "C" int tg_sizeof_attn_bwd_args() { return static_cast<int>(sizeof(BwdArg
 // K1b (bd_in 0): dq = dqrw, dqr = dqrr [BH, q, dh]; dk, dv = dk_cur, dv_cur
 // [BH, q, dh]; drk [H, M + 2q, dh] fp32 with scratch drk_part
 // [n_split, H, M + 2q, dh]. K2b (bd_in 1): dq [BH, q, dh]; dk, dv
-// [BH, M + q, dh]; dbd [BH, q, M + q] (the wrapper zeroes it: masked tiles
-// the kernel skips stay 0).
+// [BH, M + q, dh]; dbd [BH, q, M + q] (fp32: the wrapper zeroes it, masked
+// tiles the kernel skips stay 0; bf16: the tensor-core kernels write every
+// entry, with the scratch dout_lp and dsum).
 extern "C" int tg_xl_attn_bwd(const BwdArgs* args, void* stream) {
   const BwdArgs& a = *args;
   if (a.dh > 32 * kMaxDPL || a.dh < 1 || a.n_split < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
+  if (a.dtype == 1 && a.bd_in) return xl_attn_bwd_v1_tc(a, st);
   if (a.dtype == 0 && a.bd_in) return launch_bwd<float, true>(a, st);
   if (a.dtype == 0) return launch_bwd<float, false>(a, st);
-  if (a.dtype == 1 && a.bd_in) return launch_bwd<__nv_bfloat16, true>(a, st);
   if (a.dtype == 1) return launch_bwd<__nv_bfloat16, false>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -112,9 +112,25 @@ def check_attention(variant: str, dtype, q: int, B: int, count: int,
         tol = ATTN_REL_TOL_BF16 * scale
     ml_err = max(float((m_k - m_p).abs().max()),
                  float(((l_k - l_p).abs() / l_p).max()))
-    return {"variant": variant, "dtype": str(dtype).split(".")[-1], "q": q,
-            "B": B, "count": count, "max_abs_err": err, "max_abs_o": scale,
-            "tol": tol, "ml_err": ml_err, "ok": err <= tol and ml_err <= 1e-3}
+    res = {"variant": variant, "dtype": str(dtype).split(".")[-1], "q": q,
+           "B": B, "count": count, "max_abs_err": err, "max_abs_o": scale,
+           "tol": tol, "ml_err": ml_err, "ok": err <= tol and ml_err <= 1e-3}
+    if variant == "v1" and dtype == torch.bfloat16:
+        # the split kernel and its combine against the plain combine of the
+        # same number of key ranges, at the same tolerance
+        qq, k = args[0], args[1]
+        splits = attn_ops.v1_key_splits(
+            qq.shape[0], q, k.shape[1],
+            torch.cuda.get_device_properties(qq.device).multi_processor_count)
+        res["splits"] = splits
+        if splits > 1:
+            o_s, m_s, l_s = plain(*args, splits=splits)
+            res["split_max_abs_err"] = float((o_k - o_s).abs().max())
+            res["split_ml_err"] = max(float((m_k - m_s).abs().max()),
+                                      float(((l_k - l_s).abs() / l_s).max()))
+            res["ok"] = (res["ok"] and res["split_max_abs_err"] <= tol
+                         and res["split_ml_err"] <= 1e-3)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -850,9 +866,10 @@ def sdpa_case(q: int, B: int, M: int, count: int, same_length: bool,
               H: int = 10, dh: int = 50, dtype=torch.bfloat16, seed: int = 0):
     """``scaled_dot_product_attention`` on K2f's function: queries q + r_w_bias
     [B, H, q, dh], keys and values [B, H, M + q, dh], the position term
-    BD x scale plus the mask as a float ``attn_mask``. Returns (fwd, fwd_bwd)
-    callables (timed beside K2f / K2b as the library yardstick; the port
-    never calls it)."""
+    BD x scale plus the mask as a float ``attn_mask``. Returns callables
+    (fwd, fwd_bwd, bwd); ``bwd`` is SDPA's backward alone, on one forward
+    kept with its graph (timed beside K2f / K2b as the library yardstick;
+    the port never calls it)."""
     from .models.attention import build_attn_mask
     gen = torch.Generator(device="cuda").manual_seed(seed)
     klen = M + q
@@ -878,4 +895,9 @@ def sdpa_case(q: int, B: int, M: int, count: int, same_length: bool,
         o = sdpa(*grads[:3], attn_mask=grads[3], scale=scale)
         torch.autograd.grad(o, grads, do)
 
-    return fwd, fwd_bwd
+    kept = sdpa(*grads[:3], attn_mask=grads[3], scale=scale)
+
+    def bwd():
+        torch.autograd.grad(kept, grads, do, retain_graph=True)
+
+    return fwd, fwd_bwd, bwd

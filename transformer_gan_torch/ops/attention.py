@@ -13,7 +13,11 @@ Ports four TPU kernels:
 * ``xl_attn_fwd_v1`` (K2f) replaces ``pallas_attention._fused_fwd_raw`` and
   ``xl_attn_bwd_v1`` (K2b) ``pallas_attention._fused_bwd_raw``: the position
   term arrives precomputed as ``bd [BH, q, klen]``; the backward returns
-  ``dbd = dS * scale`` and dk, dv over every key.
+  ``dbd = dS * scale`` and dk, dv over every key. In bf16 both run on the
+  tensor cores (``csrc/attention_v1_tc.cu``, ``csrc/attention_v1_tc_bwd.cu``,
+  d_head <= 64); K2f splits the keys across blocks when the card would be
+  under-filled (:func:`v1_key_splits`) and merges the splits as
+  :func:`combine_splits_plain` does. fp32 stays on the CUDA-core kernels.
 
 The forwards return ``o`` (fp32), the row max ``m`` and the row sum ``l`` of
 the unnormalised exponentials, as the TPU kernels do; the backwards
@@ -174,7 +178,7 @@ def xl_attn_fwd_v2(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, count, reset,
         _native.dtype_code(qrw.dtype), 0, p(qrw), p(qrr), p(k_mem), p(v_mem),
         M * dh, p(k_cur), p(v_cur), q * dh, p(rk), None, p(reset_bh),
         p(o), p(m), p(l), H * B, B, q, M, dh, count, 1.0, int(same_length),
-        int(seed), dropout_threshold(rate), float(rate),
+        int(seed), dropout_threshold(rate), float(rate), None, 1,
         _native.stream_ptr(dev))
     _native.check(rc, "xl_attn_fwd_v2")
     _native.count_launch("xl_attn_fwd_v2")
@@ -202,13 +206,13 @@ def xl_attn_fwd_v2_plain(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, count,
 
 
 class _BwdArgs(ctypes.Structure):
-    """Mirror of ``struct BwdArgs`` in csrc/attention_bwd.cu."""
+    """Mirror of ``struct BwdArgs`` in csrc/attention_args.cuh."""
 
     _fields_ = (
         [(k, ctypes.c_void_p) for k in (
             "qrw", "qrr", "kmem", "vmem", "kcur", "vcur", "rk", "bd", "reset",
             "m", "l", "o", "dout", "dq", "dqr", "dk", "dv", "dbd", "drk_part",
-            "drk")]
+            "drk", "dout_lp", "dsum")]
         + [("mem_bh", ctypes.c_longlong), ("cur_bh", ctypes.c_longlong)]
         + [(k, ctypes.c_int) for k in (
             "dtype", "bd_in", "BH", "B", "q", "M", "dh", "count",
@@ -220,7 +224,7 @@ class _BwdArgs(ctypes.Structure):
 def _launch_bwd(name: str, dev, **fields) -> None:
     lib = _native.lib()
     if ctypes.sizeof(_BwdArgs) != lib.tg_sizeof_attn_bwd_args():
-        raise RuntimeError("_BwdArgs layout differs from csrc/attention_bwd.cu")
+        raise RuntimeError("_BwdArgs layout differs from csrc/attention_args.cuh")
     args = _BwdArgs(**{k: (_native.ptr(v) if isinstance(v, torch.Tensor)
                            else v) for k, v in fields.items()})
     rc = lib.tg_xl_attn_bwd(ctypes.byref(args), _native.stream_ptr(dev))
@@ -380,6 +384,45 @@ def _v1_scores(q, k, bd, count, reset, scale, same_length):
     return s.masked_fill(mask, NEG)
 
 
+# K2f's tensor-core kernel splits the keys of each 64-row query tile into
+# ranges of whole 64-key tiles when BH x query tiles would leave the card
+# under-filled: enough blocks for two waves, at least two key tiles a split.
+TC_TILE = 64
+MAX_KEY_SPLITS = 32
+
+
+def v1_key_splits(BH: int, qlen: int, klen: int, n_sm: int) -> int:
+    """Key splits the bf16 K2f runs at these shapes on a card of ``n_sm``
+    streaming multiprocessors (1: no split, no combine)."""
+    tiles = BH * -(-qlen // TC_TILE)
+    if tiles >= 2 * n_sm:
+        return 1
+    key_tiles = -(-klen // TC_TILE)
+    return max(1, min(-(-2 * n_sm // tiles), key_tiles // 2, MAX_KEY_SPLITS))
+
+
+def k2_design(dtype) -> str:
+    """Which K2f / K2b kernels a dtype runs on the card."""
+    if dtype == torch.bfloat16:
+        return ("tensor cores (mma.sync m16n8k16 bf16, 64x64 tiles, split-key "
+                "forward with a combine kernel)")
+    return "CUDA cores in fp32 (the exact on-card reference)"
+
+
+def combine_splits_plain(o_part, m_part, l_part, rate: float = 0.0):
+    """Merge key splits as K2f's combine kernel does: o_part [S, ..., dh]
+    unnormalised sums of rounded P V, m_part / l_part [S, ...] each split's
+    row max (-inf where it saw no open key) and sum. Returns (o, m, l) with
+    m = max m_s, l = sum w_s l_s, o = sum w_s o_s / l / (1 - rate),
+    w_s = exp(m_s - m) (0 for an empty split)."""
+    m = m_part.amax(0)
+    w = torch.where(m_part == float("-inf"), 0.0,
+                    torch.exp(m_part - m.unsqueeze(0)))
+    l = (w * l_part).sum(0)
+    o = (w.unsqueeze(-1) * o_part).sum(0) * ((1.0 / l) / (1.0 - rate))[..., None]
+    return o, m, l
+
+
 def xl_attn_fwd_v1(q, k, v, bd, count, reset, scale: float,
                    same_length: bool, *, seed: int = 0, rate: float = 0.0):
     """q: [BH, qlen, dh] (q + r_w_bias); k, v: [BH, klen, dh] (memory then
@@ -397,10 +440,22 @@ def xl_attn_fwd_v1(q, k, v, bd, count, reset, scale: float,
     if k.shape != (BH, klen, dh) or v.shape != k.shape or \
             bd.shape != (BH, qlen, klen):
         raise ValueError("xl_attn_fwd_v1: inconsistent shapes")
+    tc = q.dtype == torch.bfloat16
+    if tc and dh > TC_TILE:
+        raise ValueError(f"xl_attn_fwd_v1: bf16 takes d_head <= {TC_TILE}, "
+                         f"got {dh}")
     reset_bh = _reset_i32(reset, BH, dev)
     o = torch.empty((BH, qlen, dh), dtype=torch.float32, device=dev)
     m = torch.empty((BH, 1, qlen), dtype=torch.float32, device=dev)
     l = torch.empty((BH, 1, qlen), dtype=torch.float32, device=dev)
+    n_split, part = 1, None
+    if tc:
+        n_split = v1_key_splits(
+            BH, qlen, klen, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+        if n_split > 1:  # partial (o, m, l) of every split
+            part = torch.empty(n_split * BH * qlen * (dh + 2),
+                               dtype=torch.float32, device=dev)
     p = _native.ptr
     cur_off = M * dh * k.element_size()  # current K/V follow the memory rows
     rc = _native.lib().tg_xl_attn_fwd(
@@ -408,30 +463,64 @@ def xl_attn_fwd_v1(q, k, v, bd, count, reset, scale: float,
         p(k) + cur_off, p(v) + cur_off, klen * dh, None, p(bd), p(reset_bh),
         p(o), p(m), p(l), BH, 1, qlen, M, dh, count, float(scale),
         int(same_length), int(seed), dropout_threshold(rate), float(rate),
-        _native.stream_ptr(dev))
+        p(part), n_split, _native.stream_ptr(dev))
     _native.check(rc, "xl_attn_fwd_v1")
     _native.count_launch("xl_attn_fwd_v1")
+    if tc:
+        _native.count_launch("xl_attn_fwd_v1_tc")
     return o, m, l
 
 
 def xl_attn_fwd_v1_plain(q, k, v, bd, count, reset, scale: float,
                          same_length: bool, *, seed: int = 0,
-                         rate: float = 0.0):
+                         rate: float = 0.0, splits: int = 1):
     """Plain PyTorch version of :func:`xl_attn_fwd_v1` (normalised P,
     dropped and keep-scaled, rounded to the value type before P V, as the
-    TPU kernel does)."""
+    TPU kernel does). With ``splits`` > 1 the keys are cut into that many
+    contiguous ranges, each gives a partial (o, m, l) as a split of the
+    tensor-core kernel does (masked keys excluded, unnormalised P rounded to
+    the value type) and :func:`combine_splits_plain` merges them."""
     BH, qlen, dh = q.shape
     acc = _acc(q.dtype)
     s = _v1_scores(q, k, bd, count, reset, scale, same_length)
+    keep = None
+    if rate > 0.0:
+        keep = keep_mask(seed, BH, qlen, k.shape[1], rate, q.device)
+    if splits > 1:
+        return _fwd_v1_split(q, k, v, count, reset, same_length, s, keep,
+                             rate, splits)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     p = p / l
-    if rate > 0.0:
-        keep = keep_mask(seed, BH, qlen, k.shape[1], rate, q.device)
+    if keep is not None:
         p = torch.where(keep, p / (1.0 - rate), 0.0)
     o = p.to(v.dtype).to(acc) @ v.to(acc)
     return o, m.transpose(-1, -2), l.transpose(-1, -2)
+
+
+def _fwd_v1_split(q, k, v, count, reset, same_length, s, keep, rate,
+                  splits):
+    qlen, klen = q.shape[1], k.shape[1]
+    acc = _acc(q.dtype)
+    if not (same_length and klen == qlen):  # else every key counts (NEG)
+        mask = build_attn_mask(qlen, klen - qlen, count, same_length, reset,
+                               q.device)
+        s = s.masked_fill(mask, float("-inf"))
+    parts = []
+    for idx in torch.arange(klen, device=q.device).tensor_split(splits):
+        ss = s[..., idx]
+        m_s = ss.amax(-1)
+        p = torch.where(ss == float("-inf"), 0.0,
+                        torch.exp(ss - m_s[..., None]))
+        l_s = p.sum(-1)
+        if keep is not None:
+            p = torch.where(keep[..., idx], p, 0.0)
+        o_s = p.to(v.dtype).to(acc) @ v[:, idx].to(acc)
+        parts.append((o_s, m_s, l_s))
+    o, m, l = combine_splits_plain(*(torch.stack(x) for x in zip(*parts)),
+                                   rate=rate)
+    return o, m[:, None], l[:, None]
 
 
 def xl_attn_bwd_v1(q, k, v, bd, m, l, o, do, count, reset, scale: float,
@@ -453,18 +542,30 @@ def xl_attn_bwd_v1(q, k, v, bd, m, l, o, do, count, reset, scale: float,
         raise ValueError("xl_attn_bwd_v1: inconsistent shapes")
     m, l, o, do = _f32(m), _f32(l), _f32(o), _f32(do)
     _check_cuda("xl_attn_bwd_v1", torch.float32, dev, m=m, l=l, o=o, do=do)
+    tc = q.dtype == torch.bfloat16
+    if tc and dh > TC_TILE:
+        raise ValueError(f"xl_attn_bwd_v1: bf16 takes d_head <= {TC_TILE}, "
+                         f"got {dh}")
     reset_bh = _reset_i32(reset, BH, dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dbd = torch.zeros_like(bd)  # score tiles the kernel skips stay 0
+    # the tensor-core kernels write every entry of dbd; the fp32 kernels
+    # skip masked score tiles, which must read 0
+    dbd = torch.empty_like(bd) if tc else torch.zeros_like(bd)
+    do_lp = torch.empty_like(q) if tc else None          # do in bf16
+    dsum = (torch.empty((BH, qlen), dtype=torch.float32, device=dev)
+            if tc else None)                             # rowsum(do * o)
     cur = M * dh * k.element_size()
     _launch_bwd("xl_attn_bwd_v1", dev, qrw=q, kmem=k, vmem=v,
                 kcur=k.data_ptr() + cur, vcur=v.data_ptr() + cur, bd=bd,
                 reset=reset_bh, m=m, l=l, o=o, dout=do, dq=dq, dk=dk, dv=dv,
-                dbd=dbd, mem_bh=klen * dh, cur_bh=klen * dh,
-                dtype=_native.dtype_code(q.dtype), bd_in=1, BH=BH, B=1, q=qlen,
-                M=M, dh=dh, count=count, same_length=int(same_length),
-                n_split=1, seed=int(seed), thr=dropout_threshold(rate),
-                scale=float(scale), rate=float(rate))
+                dbd=dbd, dout_lp=do_lp, dsum=dsum, mem_bh=klen * dh,
+                cur_bh=klen * dh, dtype=_native.dtype_code(q.dtype), bd_in=1,
+                BH=BH, B=1, q=qlen, M=M, dh=dh, count=count,
+                same_length=int(same_length), n_split=1, seed=int(seed),
+                thr=dropout_threshold(rate), scale=float(scale),
+                rate=float(rate))
+    if tc:
+        _native.count_launch("xl_attn_bwd_v1_tc")
     return dq, dk, dv, dbd
 
 
