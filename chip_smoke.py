@@ -12,7 +12,7 @@ Phases, one line each; any failure exits non-zero:
    forwards at M 4146, the attention backwards (K1b, K2b) and the forwards
    with dropout at q 128, M 0 and 1024, B 1, 8 and the training batch 128,
    K1f / K1b at the GAN config's MLE shape (q 512, M 128, B 64), the
-   same_length window without memory, bf16 K2f / K2b (tensor cores) at
+   same_length window without memory, bf16 K1 and K2 (tensor cores) at
    ragged q 77 / 50 and, with the keys split across blocks, at M 4146 (B 1,
    3, 8) against the plain combine of as many key ranges (the phase prints
    the design and the splits), the fused sampler (K3), the GAN's
@@ -20,12 +20,14 @@ Phases, one line each; any failure exits non-zero:
 4. main path, generation: ``transformer_gan_torch.cli.generate.main`` on
    seeded full-width bf16 parameters, unconditional (8 lanes) and
    conditional with the debug incremental == batch memory check, with
-   launch counters showing both kernels of the path ran; then the kernel
+   launch counters showing the kernels of the path ran (K1f on the tensor
+   cores, K3); then the kernel
    path against the CPU plain path on a short full-width fp32 slice;
 5. main path, training: ``transformer_gan_torch.cli.train`` on
    experiment_baseline.yml (batch 128) over a seeded random corpus for 8
-   steps with an eval and checkpoints (K1f, K1b), a 2-step run at
-   TRAIN.mem_length 0 with random_crop (K2f, K2b), the generation CLI on
+   steps with an eval and checkpoints (K1f, K1b, bf16 on the tensor
+   cores), a 2-step run at TRAIN.mem_length 0 with random_crop (K2f, K2b),
+   the generation CLI on
    the trained run directory, and two fp32 full-width training steps of the
    kernel path against the CPU plain path;
 6. main path, GAN: ``transformer_gan_torch.cli.train`` on
@@ -39,7 +41,13 @@ Phases, one line each; any failure exits non-zero:
    plain version, its least time on the card (bound) and, where one
    PyTorch call computes the same function, that call's time (K2f at
    M 4146, B 1 and at the training shape q 128, B 128, M 0 against SDPA's
-   forward; K2b against SDPA's backward alone).
+   forward; K2b against SDPA's backward alone); K1f and K1b at the MLE
+   step's shape (q 128, B 128, M 1024, dropatt 0.1) beside the v1 route on
+   the same inputs (BD by torch.matmul and a gather, then K2f / K2b), a
+   yardstick the port never calls. The plain versions of K1f / K1b at that
+   shape take 5 timed calls (their kernels 5 too), and the fp32 CUDA-core
+   K1f / K1b, the on-card references, are timed against their fp32 plain
+   versions.
 
 The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -124,15 +132,15 @@ def main() -> None:
                 errs[variant][key] = max(errs[variant].get(key, 0.0),
                                          res["max_abs_err"])
                 if "splits" in res:
-                    splits[f"q {q}, B {B}"] = res["splits"]
+                    splits[f"{variant} q {q}, B {B}"] = res["splits"]
                     split_err = max(split_err,
                                     res.get("split_max_abs_err", 0.0))
     phase("kernels.attention", max_abs_err=errs["v2"],
           v1_max_abs_err=errs["v1"], cases=cases,
-          k2_design={str(d).split(".")[-1]: attn_ops.k2_design(d)
-                     for d in (torch.float32, torch.bfloat16)},
-          k2f_bf16_key_splits=splits,
-          k2f_split_vs_plain_combine_max_abs_err=split_err,
+          design={str(d).split(".")[-1]: attn_ops.attention_design(d)
+                  for d in (torch.float32, torch.bfloat16)},
+          bf16_key_splits=splits,
+          split_vs_plain_combine_max_abs_err=split_err,
           tol={"float32": kc.ATTN_TOL_F32,
                "bfloat16": f"{kc.ATTN_REL_TOL_BF16} * max|o|"})
     bwd_errs = check_attention_bwd(kc)
@@ -194,17 +202,24 @@ def main() -> None:
              "library_ms": num.get("library_ms"),
              "library_call": num.get("library_call"),
              "shape": num.get("shape")}
-        if key + "_tc" in launches:   # K2f / K2b: bf16 runs on the tensor cores
+        if key + "_tc" in launches:   # bf16 K1 / K2 run on the tensor cores
             e["launches_tensor_core"] = launches[key + "_tc"]
             e["source_fp32"] = "transformer_gan_torch/csrc/" + (
                 "attention.cu" if "fwd" in key else "attention_bwd.cu")
-        for k in ("other_shapes", "fwd_bwd_ms", "library_fwd_bwd_ms"):
-            if k in num:
-                e[k] = num[k]
+        for k, v in num.items():
+            if k not in e and k not in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by"):
+                e[k] = v
         return e
 
     v2f = [errs["v2"], bwd_errs["fwd_v2"], gan_attn["fwd_v2"]]
     v1f = [errs["v1"], bwd_errs["fwd_v1"], gan_attn["fwd_v1"]]
+    # K1f / K1b: every call enters tg_xl_attn_fwd / tg_xl_attn_bwd of
+    # attention.cu / attention_bwd.cu, which run fp32 on the CUDA cores and
+    # send bf16 to the tensor-core kernels (their own entries, timed at the
+    # MLE step's shape); the two entries of attention.cu / attention_bwd.cu
+    # time the bf16 calls at generation's prime shape and at the cnn
+    # config's MLE shape, and carry the fp32 CUDA-core kernels' times.
     kernels = [
         entry("xl_attn_fwd_v2 (K1f)", "attention.cu",
               "transformer_gan_tpu/ops/pallas_attention_v2.py:111",
@@ -237,6 +252,16 @@ def main() -> None:
               "transformer_gan_tpu/ops/pallas_chain_bwd.py:103",
               "chain_bwd_recompute", *worst([chain_errs["K7"]]),
               numbers["K7"]),
+        entry("xl_attn_fwd_v2_tc (K1f, bf16 on the tensor cores)",
+              "attention_v2_tc.cu",
+              "transformer_gan_tpu/ops/pallas_attention_v2.py:111",
+              "xl_attn_fwd_v2_tc", *(worst(v2f)[1],) * 2, numbers["v2_tc"]),
+        entry("xl_attn_bwd_v2_tc (K1b, bf16 on the tensor cores)",
+              "attention_v2_tc_bwd.cu",
+              "transformer_gan_tpu/ops/pallas_attention_v2.py:166",
+              "xl_attn_bwd_v2_tc",
+              *(worst([bwd_errs["v2"], gan_attn["v2"]])[1],) * 2,
+              numbers["bwd_v2_tc"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -315,7 +340,7 @@ def run_main_path(_native) -> dict:
                         "tokens_per_s": summary["tokens"]
                         / summary["generate_seconds"]}
     launches = dict(_native.LAUNCHES)
-    for k in ("xl_attn_fwd_v2", "generate_chunk"):
+    for k in ("xl_attn_fwd_v2", "xl_attn_fwd_v2_tc", "generate_chunk"):
         if launches[k] == 0:
             fail(f"the main path never launched {k}")
     phase("main_path", launches=launches, generation_length=GEN_LENGTH,
@@ -390,6 +415,19 @@ def measure(kc, card: str) -> dict:
         res[variant] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                         "bound_by": by,
                         "shape": f"q 128, B 1, M {kc.MEM_LEN}, bf16"}
+        if variant == "v2":
+            # the fp32 CUDA-core kernel, the on-card reference
+            kernel, plain, args = kc.attention_case(variant, torch.float32,
+                                                    128, 1, kc.MEM_LEN)
+            f32 = kc.time_in_turns(lambda: kernel(*args),
+                                   lambda: plain(*args), iters=10)
+            res[variant]["fp32_ms"], res[variant]["fp32_plain_ms"] = f32
+            res[variant]["fp32_bound_ms"] = kc.bound_ms(*kc.attention_work(
+                variant, 128, 1, kc.MEM_LEN, kc.MEM_LEN, True, es=4),
+                "float32")[0]
+            res["v2_tc"] = dict(measure_k1f_train_shape(kc, card),
+                                other_shapes=[{k: v for k, v in res[variant].items()
+                                               if not k.startswith("fp32")}])
         if variant == "v1":
             fwd, _, _ = kc.sdpa_case(128, 1, kc.MEM_LEN, kc.MEM_LEN, True)
             res[variant]["library_ms"] = kc.time_ms(fwd, 20)
@@ -398,14 +436,38 @@ def measure(kc, card: str) -> dict:
                 "BD * scale + mask), forward")
             res[variant]["other_shapes"] = [measure_k2f_train_shape(kc, card)]
         else:
-            res[variant]["library_ms"] = None
-            res[variant]["library_call"] = (
-                "none: the position term comes from rk inside the kernel")
+            for r in (res["v2"], res["v2_tc"]):
+                r["library_ms"] = None
+                r["library_call"] = ("none: the position term comes from rk "
+                                     "inside the kernel")
         phase(f"numbers.attention_{variant}", q=128, B=1, M=kc.MEM_LEN,
               dtype="bfloat16", card=card, kernel_ms=ms, plain_ms=plain_ms,
               bound_ms=bound, bound_by=by,
-              library_ms=res[variant]["library_ms"])
+              library_ms=res[variant]["library_ms"],
+              **{k: v for k, v in res[variant].items() if k.startswith("fp32")})
     return res
+
+
+def measure_k1f_train_shape(kc, card: str) -> dict:
+    """bf16 K1f at the MLE step's shape (q 128, B 128, M 1024 full, dropatt
+    0.1) against its plain version, and the v1 route on the same inputs (BD
+    by torch.matmul and a gather, then K2f), a yardstick the port never
+    calls: does building BD inside the tile pay on this card?"""
+    fwd, plain, _, _, fa, ba, kw = kc.attention_bwd_case(
+        "v2", torch.bfloat16, 128, B_TRAIN, TRAIN_MEM, TRAIN_MEM, rate=0.1)
+    ms, plain_ms = kc.time_in_turns(lambda: fwd(*fa, **kw),
+                                    lambda: plain(*fa, **kw), iters=5)
+    bound, by = kc.bound_ms(*kc.attention_work("v2", 128, B_TRAIN, TRAIN_MEM,
+                                               TRAIN_MEM, False))
+    v1_fwd, _ = kc.v1_route_case(fa, ba, kw)
+    line = {"shape": f"q 128, B {B_TRAIN}, M {TRAIN_MEM}, bf16, dropatt 0.1",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "v1_route_ms": kc.time_ms(v1_fwd, 5),
+            "v1_route": "BD = gather(qrr @ rk^T) by torch, then K2f"}
+    phase("numbers.attention_v2_train_shape", card=card, **line)
+    del fa, ba
+    torch.cuda.empty_cache()
+    return line
 
 
 def measure_k2f_train_shape(kc, card: str) -> dict:
@@ -594,7 +656,9 @@ def run_train_path(_native) -> tuple[dict, str]:
     total = dict.fromkeys(_native.LAUNCHES, 0)
     runs = {}
     for name, train, need in (
-            ("mem1024", TRAIN_OVERRIDES, ("xl_attn_fwd_v2", "xl_attn_bwd_v2")),
+            ("mem1024", TRAIN_OVERRIDES, ("xl_attn_fwd_v2", "xl_attn_bwd_v2",
+                                          "xl_attn_fwd_v2_tc",
+                                          "xl_attn_bwd_v2_tc")),
             ("mem0_random_crop", {**TRAIN_OVERRIDES, "max_step": 2,
                                   "log_interval": 1, "eval_interval": 2,
                                   "mem_length": 0, "random_crop": True},
@@ -663,6 +727,37 @@ def run_train_path(_native) -> tuple[dict, str]:
 TRAIN_REF_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 1e-4,
                  "grad_leaf_rel": 2e-5, "param_rtol": 2 * 2.0 ** -23,
                  "param_atol": 1e-8, "mem_abs": 1e-3}
+
+
+def measure_k1b_cnn_shape(kc, card: str) -> dict:
+    """bf16 K1b at the cnn config's MLE step (q 512, B 16 a batch chunk,
+    M 128 full, dropatt 0.1) against its plain version."""
+    fwd, _, bwd, bwd_p, fa, ba, kw = kc.attention_bwd_case(
+        "v2", torch.bfloat16, 512, 16, 128, 128, rate=0.1)
+    args = ba(*fwd(*fa, **kw))
+    ms, plain_ms = kc.time_in_turns(lambda: bwd(*args, **kw),
+                                    lambda: bwd_p(*args, **kw), iters=10)
+    bound, by = kc.bound_ms(*kc.attention_work("v2", 512, 16, 128, 128, False,
+                                               backward=True))
+    line = {"shape": "q 512, B 16, M 128, bf16, dropatt 0.1", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+    phase("numbers.attention_v2_bwd_cnn_shape", card=card, **line)
+    return line
+
+
+def measure_k1b_fp32(kc) -> dict:
+    """The fp32 CUDA-core K1b, the on-card reference, against its fp32 plain
+    version at q 128, B 8, M 1024 full, dropatt 0.1."""
+    fwd, _, bwd, bwd_p, fa, ba, kw = kc.attention_bwd_case(
+        "v2", torch.float32, 128, 8, TRAIN_MEM, TRAIN_MEM, rate=0.1)
+    args = ba(*fwd(*fa, **kw))
+    ms, plain_ms = kc.time_in_turns(lambda: bwd(*args, **kw),
+                                    lambda: bwd_p(*args, **kw), iters=5)
+    bound = kc.bound_ms(*kc.attention_work("v2", 128, 8, TRAIN_MEM, TRAIN_MEM,
+                                           False, backward=True, es=4),
+                        "float32")[0]
+    return {"fp32_shape": f"q 128, B 8, M {TRAIN_MEM}, fp32, dropatt 0.1",
+            "fp32_ms": ms, "fp32_plain_ms": plain_ms, "fp32_bound_ms": bound}
 
 
 def check_train_reference() -> dict:
@@ -747,7 +842,7 @@ def measure_train(kc, card: str) -> dict:
             variant, torch.bfloat16, tgt, B, M, M, rate=0.1)
         o, m, l = fwd(*fa, **kw)
         args = ba(o, m, l)
-        iters = 3 if variant == "v2" else 20
+        iters = 5 if variant == "v2" else 20
         pair = kc.time_in_turns(lambda: bwd(*ba(*fwd(*fa, **kw)), **kw),
                                 lambda: bwd_p(*ba(*fwd_p(*fa, **kw)), **kw),
                                 iters=iters)
@@ -756,12 +851,25 @@ def measure_train(kc, card: str) -> dict:
         shape = f"q {tgt}, B {B}, M {M}, bf16, dropatt 0.1"
         bound, by = kc.bound_ms(*kc.attention_work(variant, tgt, B, M, M,
                                                    False, backward=True))
-        res["bwd_" + variant] = {"ms": b_ms[0], "plain_ms": b_ms[1],
-                                 "bound_ms": bound, "bound_by": by,
-                                 "library_ms": None, "shape": shape,
-                                 "library_call": "none: the position term "
-                                 "comes from rk inside the kernel"}
-        lib = lib_pair = None
+        key = "bwd_v2_tc" if variant == "v2" else "bwd_v1"
+        res[key] = {"ms": b_ms[0], "plain_ms": b_ms[1], "bound_ms": bound,
+                    "bound_by": by, "library_ms": None, "shape": shape,
+                    "library_call": "none: the position term comes from rk "
+                    "inside the kernel"}
+        lib = lib_pair = v1_pair = None
+        if variant == "v2":
+            _, v1_fwd_bwd = kc.v1_route_case(fa, ba, kw)
+            v1_pair = kc.time_ms(v1_fwd_bwd, iters)
+            cnn = measure_k1b_cnn_shape(kc, card)
+            res["bwd_v2_tc"].update(
+                fwd_bwd_ms=pair[0], fwd_bwd_plain_ms=pair[1],
+                v1_route_fwd_bwd_ms=v1_pair,
+                v1_route="BD by torch.matmul + gather, K2f + K2b, dqrr and "
+                         "drk from dbd by scatter + matmul (a yardstick)",
+                other_shapes=[cnn])
+            res["bwd_v2"] = dict(cnn, library_ms=None,
+                                 library_call=res[key]["library_call"],
+                                 **measure_k1b_fp32(kc))
         if variant == "v1":
             _, fwd_bwd, sdpa_bwd = kc.sdpa_case(tgt, B, M, M, False)
             lib_pair = kc.time_ms(fwd_bwd, 20)
@@ -777,7 +885,8 @@ def measure_train(kc, card: str) -> dict:
               dtype="bfloat16", card=card, fwd_bwd_ms=pair[0],
               fwd_bwd_plain_ms=pair[1], bwd_ms=b_ms[0],
               bwd_plain_ms=b_ms[1], bwd_bound_ms=bound, bound_by=by,
-              sdpa_bwd_ms=lib, sdpa_fwd_bwd_ms=lib_pair)
+              sdpa_bwd_ms=lib, sdpa_fwd_bwd_ms=lib_pair,
+              v1_route_fwd_bwd_ms=v1_pair)
         del o, m, l, args
     torch.cuda.empty_cache()
 
@@ -916,7 +1025,9 @@ def run_gan_path(_native, mle_run: str) -> dict:
     runs = {}
     for name, tpu, env, need in (
             ("chunk_res", {}, None, ("decode_chunk", "chain_bwd_res",
-                                     "xl_attn_fwd_v2", "xl_attn_bwd_v2")),
+                                     "xl_attn_fwd_v2", "xl_attn_bwd_v2",
+                                     "xl_attn_fwd_v2_tc",
+                                     "xl_attn_bwd_v2_tc")),
             ("step_recompute", {"gan_chain_bwd": "kernel_recompute"}, "0",
              ("decode_step", "chain_bwd_recompute"))):
         cfg = _train_cfg_file(work, f"{name}.yml", "experiment_cnn.yml",

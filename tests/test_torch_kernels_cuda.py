@@ -8,7 +8,9 @@ those of transformer_gan_torch.kernel_check. The backward kernels (K1b, K2b)
 and the forwards with dropout are checked with and without dropout and
 reset rows, in fp32 and bf16; the same_length window without memory; the
 bf16 tensor-core K2f / K2b at ragged shapes, with split keys at M 4146 and
-at the training batch; the GAN sampler (K4, K5) and reverse chain (K6, K7) at M 64, B 8, 24 and 64,
+at the training batch; the bf16 tensor-core K1f / K1b at the MLE step's
+shape, the cnn config's, ragged q at M 4146 and the prime shape with split
+keys; the GAN sampler (K4, K5) and reverse chain (K6, K7) at M 64, B 8, 24 and 64,
 with an odd count."""
 
 import pytest
@@ -176,6 +178,81 @@ def test_bf16_k2_runs_the_tensor_core_kernels(cuda):
     assert _native.LAUNCHES["xl_attn_bwd_v1"] == 2
     assert _native.LAUNCHES["xl_attn_fwd_v1_tc"] == 1
     assert _native.LAUNCHES["xl_attn_bwd_v1_tc"] == 1
+
+
+# ---------------------------------------------------------------------------
+# K1f / K1b in bf16: the tensor-core kernels (position term in the tiles)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q,B,M,count,rate,same_length", [
+    (128, 128, 1024, 1024, 0.1, False),   # the MLE step
+    (512, 16, 128, 128, 0.1, False),      # the cnn config's MLE step
+    (128, 3, 300, 200, 0.1, True),        # count < M, same_length
+    (50, 2, kc.MEM_LEN, 3000, 0.1, False),   # ragged q: windows below row 0
+    (77, 2, kc.MEM_LEN, kc.MEM_LEN, 0.0, True),
+    (37, 3, 0, 0, 0.1, False),            # no memory, one ragged tile
+])
+def test_tc_k1_matches_plain(cuda, q, B, M, count, rate, same_length):
+    _native.reset_launches()
+    res = kc.check_attention_bwd("v2", torch.bfloat16, q, B, count, M,
+                                 rate=rate, same_length=same_length)
+    assert res["ok"], res
+    assert _native.LAUNCHES["xl_attn_fwd_v2_tc"] == 1
+    assert _native.LAUNCHES["xl_attn_bwd_v2_tc"] == 1
+
+
+@pytest.mark.parametrize("q,B,count,reset", [
+    (128, 1, kc.MEM_LEN, None), (128, 1, 0, None), (50, 1, 2000, None),
+    (128, 3, kc.MEM_LEN, [0, 1, 0]), (77, 8, kc.MEM_LEN, None),
+])
+def test_tc_k1_forward_splits_the_keys_at_the_prime_shape(cuda, q, B, count,
+                                                          reset):
+    """M 4146 at B 1-8: the keys are split and merged by the combine kernel,
+    checked against the plain version and the plain combine of as many key
+    ranges (count 0: the splits over the memory see no open key)."""
+    if reset is not None:
+        reset = torch.tensor(reset, device=cuda, dtype=torch.int32)
+    res = kc.check_attention("v2", torch.bfloat16, q, B, count, reset=reset)
+    assert res["splits"] > 1, res
+    assert res["ok"], res
+
+
+def test_tc_k1_reset_rows_and_masked_window(cuda):
+    reset = torch.tensor([0, 1, 0], device=cuda, dtype=torch.int32)
+    res = kc.check_attention_bwd("v2", torch.bfloat16, 128, 3, 1024, 1024,
+                                 rate=0.1, reset=reset)
+    assert res["ok"], res
+    for q in (128, 37):   # same_length without memory: every key masked
+        fwd = kc.check_attention("v2", torch.bfloat16, q, 8, 0, M=0,
+                                 same_length=True)
+        assert fwd["ok"], fwd
+        res = kc.check_attention_bwd("v2", torch.bfloat16, q, 8, 0, 0,
+                                     same_length=True)
+        assert res["ok"], res
+
+
+def test_tc_k1_split_forward_and_drk_are_deterministic(cuda):
+    kernel, _, args = kc.attention_case("v2", torch.bfloat16, 128, 1,
+                                        kc.MEM_LEN)
+    for a, b in zip(kernel(*args), kernel(*args)):
+        assert torch.equal(a, b)
+    fwd, _, bwd, _, fa, ba, kw = kc.attention_bwd_case(
+        "v2", torch.bfloat16, 128, 17, 300, 300, rate=0.1)
+    args = ba(*fwd(*fa, **kw))
+    for a, b in zip(bwd(*args, **kw), bwd(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_bf16_k1_runs_the_tensor_core_kernels(cuda):
+    """bf16 K1f / K1b launch the tensor-core kernels; fp32 keeps the
+    CUDA-core kernels (the exact on-card reference)."""
+    _native.reset_launches()
+    kc.check_attention_bwd("v2", torch.bfloat16, 16, 1, 8, 8)
+    kc.check_attention_bwd("v2", torch.float32, 16, 1, 8, 8)
+    assert _native.LAUNCHES["xl_attn_fwd_v2"] == 2
+    assert _native.LAUNCHES["xl_attn_bwd_v2"] == 2
+    assert _native.LAUNCHES["xl_attn_fwd_v2_tc"] == 1
+    assert _native.LAUNCHES["xl_attn_bwd_v2_tc"] == 1
 
 
 # ---------------------------------------------------------------------------

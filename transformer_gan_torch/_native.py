@@ -32,10 +32,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo"]
 
 # kernel name -> launches since the last reset_launches()
-# (the "_tc" entries count the bf16 K2f / K2b calls that ran the
+# (the "_tc" entries count the bf16 K1f / K1b / K2f / K2b calls that ran the
 # tensor-core kernels, a subset of the calls of the plain names)
 LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
                             "xl_attn_bwd_v2": 0, "xl_attn_bwd_v1": 0,
+                            "xl_attn_fwd_v2_tc": 0, "xl_attn_bwd_v2_tc": 0,
                             "xl_attn_fwd_v1_tc": 0, "xl_attn_bwd_v1_tc": 0,
                             "generate_chunk": 0, "decode_chunk": 0,
                             "decode_step": 0, "chain_bwd_res": 0,

@@ -1,14 +1,15 @@
-// Transformer-XL relative attention forward, hand-written for Hopper (sm_90a).
+// Transformer-XL relative attention forward, hand-written for Hopper (sm_90a):
+// the fp32 kernels, on the CUDA cores, and the entry point of every forward.
 //
 // Replaces two TPU kernels of transformer_gan_tpu/ops:
-//   * pallas_attention_v2._fwd_kernel (reached through _fwd_raw): the position
-//     term BD[i, j] = qrr[i] . rk[q-1-i+j] is computed in the kernel
-//     (BD_IN = false; the prime and the debug re-prime of generation use it);
-//   * pallas_attention._fwd_kernel (reached through _fused_fwd_raw): BD is
-//     read from a precomputed [BH, q, klen] input (BD_IN = true). Only the
-//     fp32 K2f runs here (the exact on-card reference of the fp32 checks);
-//     tg_xl_attn_fwd sends bf16 K2f to the tensor-core kernel of
-//     attention_v1_tc.cu.
+//   * pallas_attention_v2._fwd_kernel (reached through _fwd_raw), K1f: the
+//     position term BD[i, j] = qrr[i] . rk[q-1-i+j] is computed in the kernel
+//     (BD_IN = false);
+//   * pallas_attention._fwd_kernel (reached through _fused_fwd_raw), K2f: BD
+//     is read from a precomputed [BH, q, klen] input (BD_IN = true).
+// Only fp32 runs here, the exact on-card reference of the fp32 checks:
+// tg_xl_attn_fwd sends bf16 K1f to the tensor-core kernel of
+// attention_v2_tc.cu and bf16 K2f to that of attention_v1_tc.cu.
 // Both write o = softmax(S) V in fp32 and the row max m and row sum l of the
 // unnormalised exponentials, with the mask of pallas_attention._mask_block
 // (memory valid count, per-row reset, same_length band; same_length without
@@ -20,8 +21,8 @@
 // (attention_bwd.cu) redraw the same mask.
 //
 // What bounds it on the H100: at the prime op-point (H 10, q <= 128, M 4146,
-// dh 50) each (h, b) block streams its K/V memory once, 2 * M * dh * 2 bytes
-// in bf16 (0.8 MB), and does 3 * q * (M + q) * dh multiply-adds (FLOPs and
+// dh 50) each (h, b) block streams its K/V memory once, 2 * M * dh * 4 bytes
+// in fp32 (1.7 MB), and does 3 * q * (M + q) * dh multiply-adds (FLOPs and
 // bytes are both small; the kernel runs on the CUDA cores in fp32).
 // Design: one block per (16-row query tile, h * B + b); four warps own four
 // query rows each and a lane owns one key of a 32-key tile, so a key tile is
@@ -30,8 +31,6 @@
 // reset masks leave open and stops at the causal edge. d_head 50 is no power
 // of two: rows sit in shared memory at an odd stride (conflict-free column
 // reads) and each lane keeps up to four output columns (d_head <= 128).
-// Tensor-core MMA, TMA and splitting the keys across blocks are left for
-// later work.
 #include "attention_args.cuh"
 #include "common.cuh"
 
@@ -42,14 +41,14 @@ constexpr int kKeyTile = 32;   // keys per tile: one per lane
 constexpr int kThreads = 128;
 constexpr int kMaxDPL = 4;     // output columns per lane: d_head <= 128
 
-template <typename T, bool BD_IN>
+template <bool BD_IN>
 __global__ void __launch_bounds__(kThreads)
-xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
-                   const T* __restrict__ kmem, const T* __restrict__ vmem,
+xl_attn_fwd_kernel(const float* __restrict__ qrw, const float* __restrict__ qrr,
+                   const float* __restrict__ kmem, const float* __restrict__ vmem,
                    long long mem_bh,
-                   const T* __restrict__ kcur, const T* __restrict__ vcur,
+                   const float* __restrict__ kcur, const float* __restrict__ vcur,
                    long long cur_bh,
-                   const T* __restrict__ rk, const T* __restrict__ bd,
+                   const float* __restrict__ rk, const float* __restrict__ bd,
                    const int* __restrict__ reset,
                    float* __restrict__ o, float* __restrict__ m_out,
                    float* __restrict__ l_out,
@@ -77,8 +76,8 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
     const int r = e / dh, d = e % dh, i = i0 + r;
     float a = 0.f, b = 0.f;
     if (i < q) {
-      a = to_f<T>(qrw[qbase + static_cast<long long>(i) * dh + d]);
-      if (!BD_IN) b = to_f<T>(qrr[qbase + static_cast<long long>(i) * dh + d]);
+      a = qrw[qbase + static_cast<long long>(i) * dh + d];
+      if (!BD_IN) b = qrr[qbase + static_cast<long long>(i) * dh + d];
     }
     s_qw[r * ds + d] = a;
     s_qr[r * ds + d] = b;
@@ -108,12 +107,12 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
       float kv = 0.f, vv = 0.f;
       if (j < M) {
         const long long off = bh * mem_bh + static_cast<long long>(j) * dh + d;
-        kv = to_f<T>(kmem[off]);
-        vv = to_f<T>(vmem[off]);
+        kv = kmem[off];
+        vv = vmem[off];
       } else if (j < klen) {
         const long long off = bh * cur_bh + static_cast<long long>(j - M) * dh + d;
-        kv = to_f<T>(kcur[off]);
-        vv = to_f<T>(vcur[off]);
+        kv = kcur[off];
+        vv = vcur[off];
       }
       s_k[r * ds + d] = kv;
       s_v[r * ds + d] = vv;
@@ -125,7 +124,7 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
         const int r = e / dh, d = e % dh, c = c0 + r;
         float v = 0.f;
         if (c >= 0 && c < kp)
-          v = to_f<T>(rk[(static_cast<long long>(h) * kp + c) * dh + d]);
+          v = rk[(static_cast<long long>(h) * kp + c) * dh + d];
         s_rk[r * ds + d] = v;
       }
     }
@@ -145,7 +144,7 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
         float ac = 0.f;
         for (int d = 0; d < dh; ++d) ac += s_qw[r * ds + d] * s_k[lane * ds + d];
         if (BD_IN) {
-          const float b = to_f<T>(bd[(static_cast<long long>(bh) * q + i) * klen + j]);
+          const float b = bd[(static_cast<long long>(bh) * q + i) * klen + j];
           s = (ac + b) * scale;
         } else {
           const int c = q - 1 - i + j - c0;
@@ -159,10 +158,9 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
       const float corr = m_run[rr] == -INFINITY ? 0.f : expf(m_run[rr] - m_new);
       l_run[rr] = l_run[rr] * corr + warp_sum(p);
       m_run[rr] = m_new;
-      // P is rounded to the value type before P V (after dropout)
       const bool keep =
           thr == 0u || drop_keep(drop_row_key(seed, bh, i), j, thr);
-      const float pv = rnd<T>(keep ? p : 0.f);
+      const float pv = keep ? p : 0.f;  // P after dropout
 #pragma unroll
       for (int c = 0; c < kMaxDPL; ++c) acc[rr][c] *= corr;
       for (int jj = 0; jj < kKeyTile; ++jj) {
@@ -194,7 +192,7 @@ xl_attn_fwd_kernel(const T* __restrict__ qrw, const T* __restrict__ qrr,
   }
 }
 
-template <typename T, bool BD_IN>
+template <bool BD_IN>
 int launch(const void* qrw, const void* qrr, const void* kmem, const void* vmem,
            long long mem_bh, const void* kcur, const void* vcur, long long cur_bh,
            const void* rk, const void* bd, const int* reset, float* o, float* m,
@@ -204,16 +202,16 @@ int launch(const void* qrw, const void* qrr, const void* kmem, const void* vmem,
   const int ds = dh | 1;
   const size_t smem =
       sizeof(float) * ds * (2 * kRows + 2 * kKeyTile + (BD_IN ? 0 : kKeyTile + kRows - 1));
-  auto kernel = xl_attn_fwd_kernel<T, BD_IN>;
+  auto kernel = xl_attn_fwd_kernel<BD_IN>;
   cudaError_t e = tg_allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((q + kRows - 1) / kRows, BH);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qrw), static_cast<const T*>(qrr),
-      static_cast<const T*>(kmem), static_cast<const T*>(vmem), mem_bh,
-      static_cast<const T*>(kcur), static_cast<const T*>(vcur), cur_bh,
-      static_cast<const T*>(rk), static_cast<const T*>(bd), reset, o, m, l, B, q,
-      M, dh, count, scale, same_length, seed, thr, rate);
+      static_cast<const float*>(qrw), static_cast<const float*>(qrr),
+      static_cast<const float*>(kmem), static_cast<const float*>(vmem), mem_bh,
+      static_cast<const float*>(kcur), static_cast<const float*>(vcur), cur_bh,
+      static_cast<const float*>(rk), static_cast<const float*>(bd), reset, o, m, l, B, q, M,
+      dh, count, scale, same_length, seed, thr, rate);
   TG_CHECK();
   return 0;
 }
@@ -224,10 +222,12 @@ int launch(const void* qrw, const void* qrr, const void* kmem, const void* vmem,
 // the in-kernel-BD form; any [BH, ...] order for the BD-input form.
 // Memory K/V of block bh start at kmem + bh * mem_bh, current K/V at
 // kcur + bh * cur_bh; rows are dh apart. reset may be null (no reset rows).
-// Dropout: thr = 0 keeps everything (rate must then be 0). bf16 with BD
-// input (K2f) runs the tensor-core kernel, which takes k, v as one
-// [BH, M + q, dh] array at kmem, splits the keys into n_split ranges and
-// merges them through the fp32 scratch `part` (null when n_split is 1).
+// Dropout: thr = 0 keeps everything (rate must then be 0). bf16 runs the
+// tensor-core kernels, which split the keys into n_split ranges and merge
+// them through the fp32 scratch `part` (null when n_split is 1): K2f (BD
+// input) takes k, v as one [BH, M + q, dh] array at kmem; K1f takes the
+// memory and current K/V as [BH, M, dh] and [BH, q, dh] arrays (mem_bh =
+// M * dh, cur_bh = q * dh).
 extern "C" int tg_xl_attn_fwd(int dtype, int bd_in, const void* qrw, const void* qrr,
                               const void* kmem, const void* vmem, long long mem_bh,
                               const void* kcur, const void* vcur, long long cur_bh,
@@ -246,17 +246,17 @@ extern "C" int tg_xl_attn_fwd(int dtype, int bd_in, const void* qrw, const void*
     return xl_attn_fwd_v1_tc(qrw, kmem, vmem, bd, rs, fo, fm, fl,
                              static_cast<float*>(part), BH, q, M, dh, count, scale,
                              same_length, seed, thr, rate, n_split, st);
-  if (dtype == 0 && bd_in)
-    return launch<float, true>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh, rk, bd,
-                               rs, fo, fm, fl, BH, B, q, M, dh, count, scale,
-                               same_length, seed, thr, rate, st);
-  if (dtype == 0)
-    return launch<float, false>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh, rk, bd,
-                                rs, fo, fm, fl, BH, B, q, M, dh, count, scale,
-                                same_length, seed, thr, rate, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh,
-                                        rk, bd, rs, fo, fm, fl, BH, B, q, M, dh, count,
-                                        scale, same_length, seed, thr, rate, st);
+    return xl_attn_fwd_v2_tc(qrw, qrr, kmem, vmem, kcur, vcur, rk, rs, fo, fm, fl,
+                             static_cast<float*>(part), BH, B, q, M, dh, count, same_length,
+                             seed, thr, rate, n_split, st);
+  if (dtype == 0 && bd_in)
+    return launch<true>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh, rk, bd, rs, fo,
+                        fm, fl, BH, B, q, M, dh, count, scale, same_length, seed, thr, rate,
+                        st);
+  if (dtype == 0)
+    return launch<false>(qrw, qrr, kmem, vmem, mem_bh, kcur, vcur, cur_bh, rk, bd, rs, fo,
+                         fm, fl, BH, B, q, M, dh, count, scale, same_length, seed, thr, rate,
+                         st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

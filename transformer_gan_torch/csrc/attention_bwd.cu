@@ -1,4 +1,5 @@
-// Transformer-XL relative attention backward, hand-written for Hopper (sm_90a).
+// Transformer-XL relative attention backward, hand-written for Hopper (sm_90a):
+// the fp32 kernels, on the CUDA cores, and the entry point of every backward.
 //
 // Replaces two TPU kernels of transformer_gan_tpu/ops:
 //   * pallas_attention_v2._bwd_kernel (reached through _bwd_raw), K1b: the
@@ -8,23 +9,23 @@
 //     batch;
 //   * pallas_attention._bwd_kernel (reached through _fused_bwd_raw), K2b: BD
 //     is an input (BD_IN = true); outputs dq, dk and dv over all keys, and
-//     dbd = dS * scale. Only the fp32 K2b runs here (the exact on-card
-//     reference of the fp32 checks); tg_xl_attn_bwd sends bf16 K2b to the
-//     tensor-core kernels of attention_v1_tc_bwd.cu.
+//     dbd = dS * scale.
+// Only fp32 runs here, the exact on-card reference of the fp32 checks:
+// tg_xl_attn_bwd sends bf16 K1b to the tensor-core kernels of
+// attention_v2_tc_bwd.cu (then adds its drk splits with the reduce kernel
+// here) and bf16 K2b to those of attention_v1_tc_bwd.cu.
 // Both recompute P = exp(S - m) / l from the forward's row max and sum, draw
 // the forward's dropout mask again from the (seed, bh, i, j) hash, and use
 // dS = P * (dP - D) with D_i = do_i . o_i, which equals rowsum(dP * P) with
-// dropout too since o = P_drop V. bf16 rounds where the TPU kernels round:
-// dS (times scale) and P_drop are rounded to the compute type before the
-// products; the products accumulate in fp32 and are rounded once on store;
-// drk stays fp32.
+// dropout too since o = P_drop V. The products accumulate in fp32 and are
+// rounded once on store; drk stays fp32.
 //
 // What bounds it on the H100: recomputing the scores. At the training
-// op-point (H 10, B 128, q 128, M 1024, dh 50, bf16) each layer call visits
+// op-point (H 10, B 128, q 128, M 1024, dh 50) each layer call visits
 // H * B * q * (M + q) = 1.9e8 score elements; each costs three dh-long dot
 // products (AC, BD, dP) in every kernel that visits it, and the row kernel
 // adds two dh-long accumulations. Bytes are small beside that (K/V memory,
-// 0.3 GB in bf16, is read once by the row kernel). The kernels run on the
+// 0.5 GB in fp32, is read once by the row kernel). The kernels run on the
 // CUDA cores in fp32.
 // Design: the TPU kernel holds a whole (h, b) pair in VMEM and sums dR over
 // the batch in a revisited output block. Hopper blocks run in no order, so
@@ -40,11 +41,10 @@
 //     the rk row c meets the score diagonal j = c - (q-1) + i, so a block
 //     walks its split of the batch and the row tiles, loads the 47-key window
 //     that diagonal touches and sums dS * qrr over rows; a second small
-//     kernel adds the splits in a fixed order. No atomics, so dR is the same
-//     from run to run.
+//     kernel adds the splits in a fixed order (for the tensor-core K1b too).
+//     No atomics, so dR is the same from run to run.
 // Every kernel recomputes the scores it needs; nothing score-sized is
-// written to device memory (except K2b's dbd output). Tensor-core MMA and
-// fusing the three passes are left for later work.
+// written to device memory (except K2b's dbd output).
 #include "attention_args.cuh"
 #include "common.cuh"
 
@@ -57,32 +57,31 @@ constexpr int kMaxDPL = 4;     // row outputs per lane: d_head <= 128
 constexpr int kMaxOut = kKeyTile * 32 * kMaxDPL / kThreads;  // column outputs per thread
 constexpr int kDsStride = kKeyTile + 1;
 
-template <typename T>
-__device__ __forceinline__ float load_kv(const T* mem, const T* cur, long long mem_bh,
-                                         long long cur_bh, int bh, int j, int d, int M,
-                                         int klen, int dh) {
+__device__ __forceinline__ float load_kv(const float* mem, const float* cur, long long mem_bh,
+                                         long long cur_bh, int bh, int j, int d, int M, int klen,
+                                         int dh) {
   if (j < 0 || j >= klen) return 0.f;
-  if (j < M) return to_f<T>(mem[bh * mem_bh + static_cast<long long>(j) * dh + d]);
-  return to_f<T>(cur[bh * cur_bh + static_cast<long long>(j - M) * dh + d]);
+  if (j < M) return mem[bh * mem_bh + static_cast<long long>(j) * dh + d];
+  return cur[bh * cur_bh + static_cast<long long>(j - M) * dh + d];
 }
 
 // Load a 16-row query tile: qrw (and qrr), do, and per row m, l and
 // D = do . o. One warp per four rows; s_D etc. are [kRows].
-template <typename T, bool BD_IN>
+template <bool BD_IN>
 __device__ void load_row_tile(const BwdArgs& a, int bh, int i0, int ds, float* s_qw,
                               float* s_qr, float* s_do, float* s_m, float* s_l,
                               float* s_D) {
   const int q = a.q, dh = a.dh;
   const long long qbase = static_cast<long long>(bh) * q * dh;
-  const T* qrw = static_cast<const T*>(a.qrw);
-  const T* qrr = static_cast<const T*>(a.qrr);
+  const float* qrw = static_cast<const float*>(a.qrw);
+  const float* qrr = static_cast<const float*>(a.qrr);
   for (int e = threadIdx.x; e < kRows * dh; e += blockDim.x) {
     const int r = e / dh, d = e % dh, i = i0 + r;
     float w = 0.f, rr = 0.f, g = 0.f;
     if (i < q) {
       const long long off = qbase + static_cast<long long>(i) * dh + d;
-      w = to_f<T>(qrw[off]);
-      if (!BD_IN) rr = to_f<T>(qrr[off]);
+      w = qrw[off];
+      if (!BD_IN) rr = qrr[off];
       g = a.dout[off];
     }
     s_qw[r * ds + d] = w;
@@ -108,11 +107,10 @@ __device__ void load_row_tile(const BwdArgs& a, int bh, int i0, int ds, float* s
 
 // dS and P_drop of score (i, j): s is the masked-or-not raw score.
 struct Grad {
-  float ds;   // P * (dP - D) * scale, rounded to T
-  float pd;   // P_drop rounded to T
+  float ds;   // P * (dP - D) * scale
+  float pd;   // P_drop
 };
 
-template <typename T>
 __device__ __forceinline__ Grad score_grad(bool valid, float s, float dp_raw, float m,
                                            float l, float D, bool keep, float rate,
                                            float scale) {
@@ -120,15 +118,15 @@ __device__ __forceinline__ Grad score_grad(bool valid, float s, float dp_raw, fl
   if (!valid) return g;
   const float p = expf(s - m) / l;
   const float dp = keep ? dp_raw / (1.f - rate) : 0.f;
-  g.ds = rnd<T>(p * (dp - D) * scale);
-  g.pd = rnd<T>(keep ? p / (1.f - rate) : 0.f);
+  g.ds = p * (dp - D) * scale;
+  g.pd = keep ? p / (1.f - rate) : 0.f;
   return g;
 }
 
 // ---------------------------------------------------------------------------
 // rows kernel: dq (dqrw), dqrr (K1b) or dbd (K2b)
 // ---------------------------------------------------------------------------
-template <typename T, bool BD_IN>
+template <bool BD_IN>
 __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
   extern __shared__ float smem[];
   const int bh = blockIdx.y, i0 = blockIdx.x * kRows;
@@ -146,16 +144,16 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
   float* s_l = s_m + kRows;
   float* s_D = s_l + kRows;
 
-  const T* kmem = static_cast<const T*>(a.kmem);
-  const T* vmem = static_cast<const T*>(a.vmem);
-  const T* kcur = static_cast<const T*>(a.kcur);
-  const T* vcur = static_cast<const T*>(a.vcur);
-  const T* rk = static_cast<const T*>(a.rk);
-  const T* bd = static_cast<const T*>(a.bd);
+  const float* kmem = static_cast<const float*>(a.kmem);
+  const float* vmem = static_cast<const float*>(a.vmem);
+  const float* kcur = static_cast<const float*>(a.kcur);
+  const float* vcur = static_cast<const float*>(a.vcur);
+  const float* rk = static_cast<const float*>(a.rk);
+  const float* bd = static_cast<const float*>(a.bd);
   const bool reset_row = a.reset != nullptr && a.reset[bh] != 0;
   const int h = bh / a.B;
 
-  load_row_tile<T, BD_IN>(a, bh, i0, ds, s_qw, s_qr, s_do, s_m, s_l, s_D);
+  load_row_tile<BD_IN>(a, bh, i0, ds, s_qw, s_qr, s_do, s_m, s_l, s_D);
 
   float acc_q[4][kMaxDPL], acc_r[4][kMaxDPL];
   unsigned int row_key[4];
@@ -175,15 +173,15 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
     __syncthreads();
     for (int e = threadIdx.x; e < kKeyTile * dh; e += blockDim.x) {
       const int r = e / dh, d = e % dh, j = j0 + r;
-      s_k[r * ds + d] = load_kv<T>(kmem, kcur, a.mem_bh, a.cur_bh, bh, j, d, M, klen, dh);
-      s_v[r * ds + d] = load_kv<T>(vmem, vcur, a.mem_bh, a.cur_bh, bh, j, d, M, klen, dh);
+      s_k[r * ds + d] = load_kv(kmem, kcur, a.mem_bh, a.cur_bh, bh, j, d, M, klen, dh);
+      s_v[r * ds + d] = load_kv(vmem, vcur, a.mem_bh, a.cur_bh, bh, j, d, M, klen, dh);
     }
     const int c0 = q - 1 - (i0 + kRows - 1) + j0;
     if (!BD_IN) {
       for (int e = threadIdx.x; e < n_rk * dh; e += blockDim.x) {
         const int r = e / dh, d = e % dh, c = c0 + r;
         s_rk[r * ds + d] =
-            (c >= 0 && c < kp) ? to_f<T>(rk[(static_cast<long long>(h) * kp + c) * dh + d])
+            (c >= 0 && c < kp) ? rk[(static_cast<long long>(h) * kp + c) * dh + d]
                                : 0.f;
       }
     }
@@ -206,7 +204,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
         if (uniform) {
           s = kMaskedScore;
         } else if (BD_IN) {
-          s = (ac + to_f<T>(bd[(static_cast<long long>(bh) * q + i) * klen + j])) * a.scale;
+          s = (ac + bd[(static_cast<long long>(bh) * q + i) * klen + j]) * a.scale;
         } else {
           const int c = q - 1 - i + j - c0;
           float bdv = 0.f;
@@ -215,11 +213,10 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
         }
       }
       const bool keep = a.thr == 0u || drop_keep(row_key[rr], j, a.thr);
-      const Grad g = score_grad<T>(valid, s, dp, s_m[r], s_l[r], s_D[r], keep, a.rate,
-                                   a.scale);
+      const Grad g = score_grad(valid, s, dp, s_m[r], s_l[r], s_D[r], keep, a.rate, a.scale);
       if (BD_IN && j < klen)
-        static_cast<T*>(a.dbd)[(static_cast<long long>(bh) * q + i) * klen + j] =
-            from_f<T>(g.ds);
+        static_cast<float*>(a.dbd)[(static_cast<long long>(bh) * q + i) * klen + j] =
+            g.ds;
       for (int jj = 0; jj < kKeyTile; ++jj) {
         const float dsj = __shfl_sync(kFullMask, g.ds, jj);
         if (dsj == 0.f) continue;  // warp-uniform
@@ -246,8 +243,8 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
       const int d = lane + 32 * cc;
       if (d >= dh) continue;
       const long long off = qbase + static_cast<long long>(i) * dh + d;
-      static_cast<T*>(a.dq)[off] = from_f<T>(acc_q[rr][cc]);
-      if (!BD_IN) static_cast<T*>(a.dqr)[off] = from_f<T>(acc_r[rr][cc]);
+      static_cast<float*>(a.dq)[off] = acc_q[rr][cc];
+      if (!BD_IN) static_cast<float*>(a.dqr)[off] = acc_r[rr][cc];
     }
   }
 }
@@ -255,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_rows(BwdArgs a) {
 // ---------------------------------------------------------------------------
 // cols kernel: dk, dv summed over query rows (K1b: current keys only)
 // ---------------------------------------------------------------------------
-template <typename T, bool BD_IN>
+template <bool BD_IN>
 __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_first) {
   extern __shared__ float smem[];
   const int bh = blockIdx.y, j0 = key_first + blockIdx.x * kKeyTile;
@@ -275,17 +272,19 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_
   float* s_l = s_m + kRows;
   float* s_D = s_l + kRows;
 
-  const T* rk = static_cast<const T*>(a.rk);
-  const T* bd = static_cast<const T*>(a.bd);
+  const float* rk = static_cast<const float*>(a.rk);
+  const float* bd = static_cast<const float*>(a.bd);
   const bool reset_row = a.reset != nullptr && a.reset[bh] != 0;
   const int h = bh / a.B;
 
   for (int e = threadIdx.x; e < kKeyTile * dh; e += blockDim.x) {
     const int r = e / dh, d = e % dh, j = j0 + r;
-    s_k[r * ds + d] = load_kv<T>(static_cast<const T*>(a.kmem), static_cast<const T*>(a.kcur),
-                                 a.mem_bh, a.cur_bh, bh, j, d, M, klen, dh);
-    s_v[r * ds + d] = load_kv<T>(static_cast<const T*>(a.vmem), static_cast<const T*>(a.vcur),
-                                 a.mem_bh, a.cur_bh, bh, j, d, M, klen, dh);
+    s_k[r * ds + d] = load_kv(static_cast<const float*>(a.kmem),
+                              static_cast<const float*>(a.kcur), a.mem_bh, a.cur_bh, bh, j,
+                              d, M, klen, dh);
+    s_v[r * ds + d] = load_kv(static_cast<const float*>(a.vmem),
+                              static_cast<const float*>(a.vcur), a.mem_bh, a.cur_bh, bh, j,
+                              d, M, klen, dh);
   }
 
   float acc_k[kMaxOut], acc_v[kMaxOut];
@@ -297,13 +296,13 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_
   const int ilo = uniform ? 0 : (max(j0 - M, 0) / kRows) * kRows;
   for (int i0 = ilo; i0 < q; i0 += kRows) {
     __syncthreads();
-    load_row_tile<T, BD_IN>(a, bh, i0, ds, s_qw, s_qr, s_do, s_m, s_l, s_D);
+    load_row_tile<BD_IN>(a, bh, i0, ds, s_qw, s_qr, s_do, s_m, s_l, s_D);
     const int c0 = q - 1 - (i0 + kRows - 1) + j0;
     if (!BD_IN) {
       for (int e = threadIdx.x; e < n_rk * dh; e += blockDim.x) {
         const int r = e / dh, d = e % dh, c = c0 + r;
         s_rk[r * ds + d] =
-            (c >= 0 && c < kp) ? to_f<T>(rk[(static_cast<long long>(h) * kp + c) * dh + d])
+            (c >= 0 && c < kp) ? rk[(static_cast<long long>(h) * kp + c) * dh + d]
                                : 0.f;
       }
     }
@@ -323,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_
         if (uniform) {
           s = kMaskedScore;
         } else if (BD_IN) {
-          s = (ac + to_f<T>(bd[(static_cast<long long>(bh) * q + i) * klen + j])) * a.scale;
+          s = (ac + bd[(static_cast<long long>(bh) * q + i) * klen + j]) * a.scale;
         } else {
           const int c = q - 1 - i + j - c0;
           float bdv = 0.f;
@@ -333,8 +332,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_
       }
       const bool keep =
           a.thr == 0u || (valid && drop_keep(drop_row_key(a.seed, bh, i), j, a.thr));
-      const Grad g = score_grad<T>(valid, s, dp, s_m[r], s_l[r], s_D[r], keep, a.rate,
-                                   a.scale);
+      const Grad g = score_grad(valid, s, dp, s_m[r], s_l[r], s_D[r], keep, a.rate, a.scale);
       s_ds[r * kDsStride + lane] = g.ds;
       s_pd[r * kDsStride + lane] = g.pd;
     }
@@ -363,15 +361,14 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_cols(BwdArgs a, int key_
     // K1b writes the current keys only (rows j - M of dk_cur / dv_cur)
     const long long off = bh * static_cast<long long>(klen - key_first) * dh +
                           static_cast<long long>(j - key_first) * dh + d;
-    static_cast<T*>(a.dk)[off] = from_f<T>(acc_k[t]);
-    static_cast<T*>(a.dv)[off] = from_f<T>(acc_v[t]);
+    static_cast<float*>(a.dk)[off] = acc_k[t];
+    static_cast<float*>(a.dv)[off] = acc_v[t];
   }
 }
 
 // ---------------------------------------------------------------------------
 // drk kernel (K1b): drk[h, c] = sum_b sum_i dS_b[i, c-(q-1)+i] * qrr_b[i]
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(kThreads) xl_attn_bwd_drk(BwdArgs a) {
   extern __shared__ float smem[];
   const int c0 = blockIdx.x * kKeyTile, h = blockIdx.y, split = blockIdx.z;
@@ -391,11 +388,11 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_drk(BwdArgs a) {
   float* s_l = s_m + kRows;
   float* s_D = s_l + kRows;
 
-  const T* rk = static_cast<const T*>(a.rk);
+  const float* rk = static_cast<const float*>(a.rk);
   for (int e = threadIdx.x; e < kKeyTile * dh; e += blockDim.x) {
     const int r = e / dh, d = e % dh, c = c0 + r;
     s_rk[r * ds + d] =
-        c < kp ? to_f<T>(rk[(static_cast<long long>(h) * kp + c) * dh + d]) : 0.f;
+        c < kp ? rk[(static_cast<long long>(h) * kp + c) * dh + d] : 0.f;
   }
 
   float acc[kMaxOut];
@@ -415,15 +412,15 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_drk(BwdArgs a) {
                   : (jw0 > M + min(i0 + kRows, q) - 1 || jw0 + n_kv - 1 < jvalid))
         continue;
       __syncthreads();
-      load_row_tile<T, false>(a, bh, i0, ds, s_qw, s_qr, s_do, s_m, s_l, s_D);
+      load_row_tile<false>(a, bh, i0, ds, s_qw, s_qr, s_do, s_m, s_l, s_D);
       for (int e = threadIdx.x; e < n_kv * dh; e += blockDim.x) {
         const int r = e / dh, d = e % dh, j = jw0 + r;
-        s_k[r * ds + d] = load_kv<T>(static_cast<const T*>(a.kmem),
-                                     static_cast<const T*>(a.kcur), a.mem_bh, a.cur_bh,
-                                     bh, j, d, M, klen, dh);
-        s_v[r * ds + d] = load_kv<T>(static_cast<const T*>(a.vmem),
-                                     static_cast<const T*>(a.vcur), a.mem_bh, a.cur_bh,
-                                     bh, j, d, M, klen, dh);
+        s_k[r * ds + d] = load_kv(static_cast<const float*>(a.kmem),
+                                  static_cast<const float*>(a.kcur), a.mem_bh, a.cur_bh, bh,
+                                  j, d, M, klen, dh);
+        s_v[r * ds + d] = load_kv(static_cast<const float*>(a.vmem),
+                                  static_cast<const float*>(a.vcur), a.mem_bh, a.cur_bh, bh,
+                                  j, d, M, klen, dh);
       }
       __syncthreads();
 #pragma unroll
@@ -445,8 +442,7 @@ __global__ void __launch_bounds__(kThreads) xl_attn_bwd_drk(BwdArgs a) {
         }
         const bool keep =
             a.thr == 0u || (valid && drop_keep(drop_row_key(a.seed, bh, i), j, a.thr));
-        const Grad g = score_grad<T>(valid, s, dp, s_m[r], s_l[r], s_D[r], keep, a.rate,
-                                     1.f);
+        const Grad g = score_grad(valid, s, dp, s_m[r], s_l[r], s_D[r], keep, a.rate, 1.f);
         s_ds[r * kDsStride + lane] = g.ds;
       }
       __syncthreads();
@@ -482,6 +478,15 @@ __global__ void xl_attn_bwd_drk_reduce(const float* __restrict__ part, float* __
   drk[e] = s;
 }
 
+// drk = the batch splits of drk_part added in split order.
+int reduce_drk(const BwdArgs& a, cudaStream_t stream) {
+  const long long n = static_cast<long long>(a.BH / a.B) * (a.M + 2 * a.q) * a.dh;
+  xl_attn_bwd_drk_reduce<<<static_cast<unsigned int>((n + 255) / 256), 256, 0, stream>>>(
+      a.drk_part, a.drk, n, a.n_split);
+  TG_CHECK();
+  return 0;
+}
+
 size_t rows_smem(int ds, bool bd_in) {
   return sizeof(float) * (ds * (3 * kRows + 2 * kKeyTile + (bd_in ? 0 : kKeyTile + kRows - 1)) +
                           3 * kRows);
@@ -497,12 +502,12 @@ size_t drk_smem(int ds) {
                           kRows * kDsStride + 3 * kRows);
 }
 
-template <typename T, bool BD_IN>
+template <bool BD_IN>
 int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const int ds = a.dh | 1;
   const int klen = a.M + a.q;
   {
-    auto kernel = xl_attn_bwd_rows<T, BD_IN>;
+    auto kernel = xl_attn_bwd_rows<BD_IN>;
     const size_t smem = rows_smem(ds, BD_IN);
     cudaError_t e = tg_allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -513,7 +518,7 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   {
     // K1b: current keys only (the memory is detached); K2b: every key
     const int key_first = BD_IN ? 0 : a.M;
-    auto kernel = xl_attn_bwd_cols<T, BD_IN>;
+    auto kernel = xl_attn_bwd_cols<BD_IN>;
     const size_t smem = cols_smem(ds, BD_IN);
     cudaError_t e = tg_allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -523,18 +528,14 @@ int launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   }
   if (!BD_IN) {
     const int kp = klen + a.q;
-    const int H = a.BH / a.B;
-    auto kernel = xl_attn_bwd_drk<T>;
+    auto kernel = xl_attn_bwd_drk;
     const size_t smem = drk_smem(ds);
     cudaError_t e = tg_allow_smem(kernel, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((kp + kKeyTile - 1) / kKeyTile, H, a.n_split);
+    dim3 grid((kp + kKeyTile - 1) / kKeyTile, a.BH / a.B, a.n_split);
     kernel<<<grid, kThreads, smem, stream>>>(a);
     TG_CHECK();
-    const long long n = static_cast<long long>(H) * kp * a.dh;
-    xl_attn_bwd_drk_reduce<<<static_cast<unsigned int>((n + 255) / 256), 256, 0, stream>>>(
-        a.drk_part, a.drk, n, a.n_split);
-    TG_CHECK();
+    return reduce_drk(a, stream);
   }
   return 0;
 }
@@ -549,15 +550,19 @@ extern "C" int tg_sizeof_attn_bwd_args() { return static_cast<int>(sizeof(BwdArg
 // [n_split, H, M + 2q, dh]. K2b (bd_in 1): dq [BH, q, dh]; dk, dv
 // [BH, M + q, dh]; dbd [BH, q, M + q] (fp32: the wrapper zeroes it, masked
 // tiles the kernel skips stay 0; bf16: the tensor-core kernels write every
-// entry, with the scratch dout_lp and dsum).
+// entry). bf16 (K1b and K2b, the tensor-core kernels) takes the scratch
+// dout_lp and dsum.
 extern "C" int tg_xl_attn_bwd(const BwdArgs* args, void* stream) {
   const BwdArgs& a = *args;
   if (a.dh > 32 * kMaxDPL || a.dh < 1 || a.n_split < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (a.dtype == 1 && a.bd_in) return xl_attn_bwd_v1_tc(a, st);
-  if (a.dtype == 0 && a.bd_in) return launch_bwd<float, true>(a, st);
-  if (a.dtype == 0) return launch_bwd<float, false>(a, st);
-  if (a.dtype == 1) return launch_bwd<__nv_bfloat16, false>(a, st);
+  if (a.dtype == 1) {
+    const int rc = xl_attn_bwd_v2_tc(a, st);
+    return rc != 0 ? rc : reduce_drk(a, st);
+  }
+  if (a.dtype == 0 && a.bd_in) return launch_bwd<true>(a, st);
+  if (a.dtype == 0) return launch_bwd<false>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,6 +28,7 @@ constexpr int kTile = 64;         // rows and columns of every tile
 constexpr int kStride = 72;       // shared row stride in bf16 elements
 constexpr int kTileElems = kTile * kStride;
 constexpr int kDPad = 64;         // d_head padded to four k-steps
+constexpr int kLoadThreads = 128; // threads of every block that loads tiles
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -103,32 +104,170 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Fill a shared tile with rows r0..r0+63, columns 0..63 of a row-major
-// bf16 matrix with `ld` elements per row; rows >= n_rows and columns >=
-// cols read as zero (the padding of d_head, ragged edges), so the padding
-// adds nothing to any product. When `vec4` (even ld and cols, 4-byte
-// aligned base) the copy is 4-byte cp.async with zero fill (the caller
-// commits and waits), else 2-byte loads through registers. Global rows need
-// not be 16-byte aligned: d_head 50 gives 100-byte rows.
+// Fill shared rows 0..kRows-1 of a tile with bf16 rows of device memory:
+// row(r) gives the source of row r, or nullptr for a row that reads as zero
+// (a ragged edge, a window row below 0, a key past the end); columns >=
+// cols read as zero (the padding of d_head), so the padding adds nothing to
+// any product. `any` is a valid device address, the source of the
+// zero-filled copies. When `vec4` (even cols and every row 4-byte aligned)
+// the copy is 4-byte cp.async with zero fill (the caller commits and
+// waits), else 2-byte loads through registers. Rows need not be 16-byte
+// aligned: d_head 50 gives 100-byte rows.
+// Every kernel of the engine runs kLoadThreads threads: a warp copies one
+// row a step, each lane one 4-byte word, so a thread's column is fixed and
+// the row loop unrolls.
+template <int kRows, typename RowPtr>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* tile, RowPtr row, int cols,
+                                          bool vec4, const __nv_bfloat16* any) {
+  if (vec4) {
+    constexpr int wpr = kTile / 2;  // 4-byte words per row
+    static_assert(kRows * wpr % kLoadThreads == 0, "whole steps");
+    const int c = (threadIdx.x % wpr) * 2, r0 = threadIdx.x / wpr;
+    const bool col_ok = c < cols;
+#pragma unroll
+    for (int k = 0; k < kRows * wpr / kLoadThreads; ++k) {
+      const int r = r0 + k * (kLoadThreads / wpr);
+      const __nv_bfloat16* src = row(r);
+      const bool ok = src != nullptr && col_ok;
+      cp_async4(tile + r * kStride + c, ok ? src + c : any, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kRows * kTile; e += blockDim.x) {
+      const int r = e / kTile, c = e % kTile;
+      const __nv_bfloat16* src = row(r);
+      tile[r * kStride + c] =
+          (src != nullptr && c < cols) ? src[c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Rows r0..r0+63 of a row-major bf16 matrix with `ld` elements per row;
+// rows >= n_rows read as zero.
 __device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat16* src,
                                           long long ld, int r0, int n_rows, int cols,
                                           bool vec4) {
-  if (vec4) {
-    constexpr int wpr = kTile / 2;  // 4-byte words per row
-    for (int e = threadIdx.x; e < kTile * wpr; e += blockDim.x) {
-      const int r = e / wpr, c = (e % wpr) * 2, gr = r0 + r;
-      const bool ok = gr < n_rows && c < cols;
-      const __nv_bfloat16* p = ok ? src + static_cast<long long>(gr) * ld + c : src;
-      cp_async4(tile + r * kStride + c, p, ok);
+  load_rows<kTile>(
+      tile,
+      [=](int r) -> const __nv_bfloat16* {
+        const int gr = r0 + r;
+        return gr < n_rows ? src + static_cast<long long>(gr) * ld : nullptr;
+      },
+      cols, vec4, src);
+}
+
+// ---------------------------------------------------------------------------
+// The relative position term inside a tile (K1f / K1b, attention_v2_tc*.cu)
+// ---------------------------------------------------------------------------
+//
+// BD[i, j] = qrr_i . rk[q-1-i+j]. For a warp's rows iw0..iw0+15 and keys
+// j0..j0+63 the rk rows form a window of 79 starting at
+// c_w = q-1-(iw0+15)+j0, so the warp computes W = Qrr RK_win^T (16 x 80, ten
+// n-tiles) on the tensor cores and reads BD[r, jj] = W[r, 15-r+jj]: a skew
+// by one column a row, taken through a per-warp fp32 scratch. Its
+// transpose writes dS into dW[r, 15-r+jj] for dqrr = dW RK_win (K1b).
+
+constexpr int kWin = 80;       // window columns a warp's product covers
+constexpr int kScrStride = 72; // fp32 scratch row stride: float2 reads conflict-free
+constexpr int kScrFloats = 16 * kScrStride;  // one warp's scratch
+constexpr int kDwStride = 88;  // bf16 dW scratch row stride (>= 80, ldmatrix-aligned)
+constexpr int kDwElems = 16 * kDwStride;
+
+// Key j of one (h, b) pair: the memory rows [0, M) then the current rows
+// [M, klen), separate arrays of `dh`-element rows; nullptr past either end.
+__device__ __forceinline__ const __nv_bfloat16* kv_row(const __nv_bfloat16* mem,
+                                                       const __nv_bfloat16* cur, int j,
+                                                       int M, int klen, int dh) {
+  if (j < 0 || j >= klen) return nullptr;
+  return j < M ? mem + static_cast<long long>(j) * dh : cur + static_cast<long long>(j - M) * dh;
+}
+
+// A fragments (four k-steps over d_head) of rows r0, r0+8 .. of a row-major
+// bf16 matrix in device memory with `ld` elements a row; rows >= n_rows and
+// columns >= cols read as zero.
+__device__ __forceinline__ void load_a_global(uint32_t (&a)[4][4], const __nv_bfloat16* src,
+                                              long long ld, int r0, int n_rows, int cols,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  auto pair = [&](int r, int c) -> uint32_t {
+    float lo = 0.f, hi = 0.f;
+    if (r < n_rows) {
+      const __nv_bfloat16* p = src + static_cast<long long>(r) * ld;
+      if (c < cols) lo = __bfloat162float(p[c]);
+      if (c + 1 < cols) hi = __bfloat162float(p[c + 1]);
     }
-  } else {
-    for (int e = threadIdx.x; e < kTile * kTile; e += blockDim.x) {
-      const int r = e / kTile, c = e % kTile, gr = r0 + r;
-      tile[r * kStride + c] = (gr < n_rows && c < cols)
-                                  ? src[static_cast<long long>(gr) * ld + c]
-                                  : __float2bfloat16_rn(0.f);
+    return pack_bf16(lo, hi);
+  };
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    a[kk][0] = pair(r0 + g, c);
+    a[kk][1] = pair(r0 + g + 8, c);
+    a[kk][2] = pair(r0 + g, c + 8);
+    a[kk][3] = pair(r0 + g + 8, c + 8);
+  }
+}
+
+// A fragment of the transpose of a row-major shared tile [k][m]: rows
+// m0..m0+15 of A are columns m0.. of the tile, k0..k0+15 its rows.
+__device__ __forceinline__ void load_a_trans(uint32_t (&a)[4], const __nv_bfloat16* tile,
+                                             int m0, int k0, int lane) {
+  const int r = k0 + (lane & 7) + (lane >> 4) * 8;
+  const int c = m0 + ((lane >> 3) & 1) * 8;
+  ldmatrix_x4_trans(a, tile + r * kStride + c);
+}
+
+// acc += A Y^T over the window's ten n-tiles, where Y's row x (x < 80) is
+// the shared row row(x) (ldmatrix-aligned, d_head in its first 64 columns):
+// the position product W = Qrr RK_win^T.
+template <typename RowPtr>
+__device__ __forceinline__ void window_product(float (&acc)[kWin / 8][4],
+                                               const uint32_t (&a)[4][4], RowPtr row, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int np = 0; np < kWin / 16; ++np) {
+      uint32_t b[4];
+      const int x = np * 16 + (lane & 7) + (lane >> 4) * 8;
+      const int c = kk * 16 + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4(b, row(x) + c);
+      mma(acc[2 * np], a[kk], b[0], b[1]);
+      mma(acc[2 * np + 1], a[kk], b[2], b[3]);
     }
   }
+}
+
+// BD of a warp's 16 rows x 64 keys from its window product w = W (16 x 80):
+// BD[r, jj] = W[r, 15-r+jj], through the warp's fp32 scratch (each W entry
+// is stored where it lands, the 16 per row that land nowhere are dropped).
+// BD comes back in C-fragment order: out[n][2 rr + c] is row g + 8 rr,
+// column 8 n + 2 t + c.
+__device__ __forceinline__ void skew_bd(float (&out)[8][4], const float (&w)[kWin / 8][4],
+                                        float* scr, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = g + 8 * rr;
+#pragma unroll
+    for (int n = 0; n < kWin / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int x = n * 8 + 2 * t + c + row - 15;
+        if (x >= 0 && x < kTile) scr[row * kScrStride + x] = w[n][2 * rr + c];
+      }
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = g + 8 * rr;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 v = *reinterpret_cast<const float2*>(scr + row * kScrStride + n * 8 + 2 * t);
+      out[n][2 * rr] = v.x;
+      out[n][2 * rr + 1] = v.y;
+    }
+  }
+  __syncwarp();
 }
 
 }  // namespace tc

@@ -44,6 +44,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;  // 4 warps x 16 query rows
+static_assert(kThreads == tc::kLoadThreads, "the tile loader's thread count");
 constexpr int kT = tc::kTile;
 
 struct FwdTc {
@@ -350,11 +351,17 @@ int xl_attn_fwd_v1_tc(const void* q, const void* k, const void* v, const void* b
   dim3 grid((q_len + kT - 1) / kT, BH, n_split);
   xl_attn_fwd_v1_tc_kernel<<<grid, kThreads, smem, stream>>>(a);
   TG_CHECK();
-  if (n_split > 1) {
-    const unsigned int blocks = static_cast<unsigned int>((rows + 3) / 4);
-    xl_attn_fwd_v1_combine<<<blocks, kThreads, 0, stream>>>(a.o_part, a.m_part, a.l_part, o,
-                                                            m, l, rows, dh, n_split, rate);
-    TG_CHECK();
-  }
+  if (n_split > 1) return xl_attn_fwd_tc_combine(part, o, m, l, rows, dh, n_split, rate, stream);
+  return 0;
+}
+
+int xl_attn_fwd_tc_combine(const float* part, float* o, float* m, float* l, long long rows,
+                           int dh, int n_split, float rate, cudaStream_t stream) {
+  const float* m_part = part + n_split * rows * dh;
+  const float* l_part = m_part + n_split * rows;
+  const unsigned int blocks = static_cast<unsigned int>((rows + 3) / 4);
+  xl_attn_fwd_v1_combine<<<blocks, kThreads, 0, stream>>>(part, m_part, l_part, o, m, l, rows,
+                                                          dh, n_split, rate);
+  TG_CHECK();
   return 0;
 }

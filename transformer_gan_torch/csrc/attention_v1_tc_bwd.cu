@@ -44,6 +44,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;
+static_assert(kThreads == tc::kLoadThreads, "the tile loader's thread count");
 constexpr int kT = tc::kTile;
 
 struct BwdTc {
@@ -385,6 +386,14 @@ bool aligned4(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3u) == 0
 
 }  // namespace
 
+int xl_attn_bwd_tc_prologue(const float* dout, const float* o, void* dout_lp, float* dsum,
+                            long long rows, int dh, cudaStream_t stream) {
+  xl_attn_bwd_v1_tc_prologue<<<static_cast<unsigned int>((rows + 3) / 4), kThreads, 0,
+                               stream>>>(dout, o, static_cast<bf16*>(dout_lp), dsum, rows, dh);
+  TG_CHECK();
+  return 0;
+}
+
 int xl_attn_bwd_v1_tc(const BwdArgs& args, cudaStream_t stream) {
   if (args.dh < 1 || args.dh > tc::kDPad || args.dout_lp == nullptr || args.dsum == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -418,10 +427,9 @@ int xl_attn_bwd_v1_tc(const BwdArgs& args, cudaStream_t stream) {
               aligned4(a.dout);
   a.vec_bd = klen % 2 == 0 && aligned4(a.bd) && aligned4(a.dbd);
 
-  xl_attn_bwd_v1_tc_prologue<<<static_cast<unsigned int>((rows + 3) / 4), kThreads, 0,
-                               stream>>>(args.dout, args.o, static_cast<bf16*>(args.dout_lp),
-                                         args.dsum, rows, dh);
-  TG_CHECK();
+  const int rc = xl_attn_bwd_tc_prologue(args.dout, args.o, args.dout_lp, args.dsum, rows, dh,
+                                         stream);
+  if (rc != 0) return rc;
   {
     const size_t smem = sizeof(bf16) * 9 * tc::kTileElems + sizeof(float) * 8 * kT;
     cudaError_t e = tg_allow_smem(xl_attn_bwd_v1_tc_keys, smem);

@@ -115,12 +115,14 @@ def check_attention(variant: str, dtype, q: int, B: int, count: int,
     res = {"variant": variant, "dtype": str(dtype).split(".")[-1], "q": q,
            "B": B, "count": count, "max_abs_err": err, "max_abs_o": scale,
            "tol": tol, "ml_err": ml_err, "ok": err <= tol and ml_err <= 1e-3}
-    if variant == "v1" and dtype == torch.bfloat16:
-        # the split kernel and its combine against the plain combine of the
-        # same number of key ranges, at the same tolerance
-        qq, k = args[0], args[1]
+    if dtype == torch.bfloat16:
+        # the tensor-core kernel's key splits and their combine against the
+        # plain combine of the same number of key ranges, same tolerance
+        qq = args[0]
+        BH, klen = ((qq.shape[0] * qq.shape[1], args[2].shape[2] + q)
+                    if variant == "v2" else (qq.shape[0], args[1].shape[1]))
         splits = attn_ops.v1_key_splits(
-            qq.shape[0], q, k.shape[1],
+            BH, q, klen,
             torch.cuda.get_device_properties(qq.device).multi_processor_count)
         res["splits"] = splits
         if splits > 1:
@@ -860,6 +862,44 @@ def attention_work(variant, q, B, M, count, same_length, backward=False,
     ins += 4 * (2 * BH * q + 2 * BH * q * dh)
     outs = es * (BH * q * dh + 2 * BH * klen * dh + BH * q * klen)
     return ins + outs, 2 * dh * 5 * nv
+
+
+def v1_route_case(fwd_args, bwd_args, kw):
+    """Yardstick for K1f / K1b, never called by the port: the same function
+    on the same operands (``attention_bwd_case("v2", ...)``) by the v1 route,
+    the position term BD built by ``torch.matmul`` and a gather, then K2f
+    (and K2b, with dqrr and drk from dbd by a scatter and two products).
+    Returns callables (fwd, fwd_bwd)."""
+    qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, count, reset, same_length = \
+        fwd_args
+    H, B, q, dh = qrw.shape
+    klen = k_mem.shape[2] + q
+    BH = H * B
+    idx = attn_ops._bd_index(q, klen, qrw.device).expand(H, B, q, klen)
+    k = torch.cat([k_mem, k_cur], 2).reshape(BH, klen, dh)
+    v = torch.cat([v_mem, v_cur], 2).reshape(BH, klen, dh)
+    reset_bh = None if reset is None else reset.repeat(H)
+    flat = qrw.reshape(BH, q, dh)
+    do = bwd_args(*(None,) * 3)[10].reshape(BH, q, dh)
+
+    def fwd():
+        bd = torch.gather(qrr @ rk[:, None].transpose(-1, -2), 3, idx)
+        return attn_ops.xl_attn_fwd_v1(flat, k, v, bd.reshape(BH, q, klen),
+                                       count, reset_bh, 1.0, same_length,
+                                       **kw), bd
+
+    def fwd_bwd():
+        (o, m, l), bd = fwd()
+        bd = bd.reshape(BH, q, klen)
+        _, _, _, dbd = attn_ops.xl_attn_bwd_v1(flat, k, v, bd, m, l, o, do,
+                                               count, reset_bh, 1.0,
+                                               same_length, **kw)
+        dw = torch.zeros((H, B, q, klen + q), dtype=dbd.dtype,
+                         device=dbd.device)
+        dw.scatter_(3, idx, dbd.reshape(H, B, q, klen))
+        return dw @ rk[:, None], torch.einsum("hbic,hbid->hcd", dw, qrr)
+
+    return fwd, fwd_bwd
 
 
 def sdpa_case(q: int, B: int, M: int, count: int, same_length: bool,

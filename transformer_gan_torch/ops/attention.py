@@ -9,7 +9,10 @@ Ports four TPU kernels:
   beside the current K/V, and the position term
   ``BD[i, j] = qrr[i] . rk[q-1-i+j]`` is computed in the kernels. The
   backward gives no memory gradient (the XL memory is detached) and sums
-  ``drk`` over the batch.
+  ``drk`` over the batch. In bf16 both run on the tensor cores
+  (``csrc/attention_v2_tc.cu``, ``csrc/attention_v2_tc_bwd.cu``, d_head
+  <= 64), the position term built inside each tile from a window of rk; the
+  forward splits the keys as K2f does.
 * ``xl_attn_fwd_v1`` (K2f) replaces ``pallas_attention._fused_fwd_raw`` and
   ``xl_attn_bwd_v1`` (K2b) ``pallas_attention._fused_bwd_raw``: the position
   term arrives precomputed as ``bd [BH, q, klen]``; the backward returns
@@ -17,7 +20,10 @@ Ports four TPU kernels:
   tensor cores (``csrc/attention_v1_tc.cu``, ``csrc/attention_v1_tc_bwd.cu``,
   d_head <= 64); K2f splits the keys across blocks when the card would be
   under-filled (:func:`v1_key_splits`) and merges the splits as
-  :func:`combine_splits_plain` does. fp32 stays on the CUDA-core kernels.
+  :func:`combine_splits_plain` does.
+
+fp32 K1 and K2 stay on the CUDA-core kernels (``csrc/attention.cu``,
+``csrc/attention_bwd.cu``), the exact on-card reference of the fp32 checks.
 
 The forwards return ``o`` (fp32), the row max ``m`` and the row sum ``l`` of
 the unnormalised exponentials, as the TPU kernels do; the backwards
@@ -167,40 +173,54 @@ def xl_attn_fwd_v2(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, count, reset,
     dev = qrw.device
     _check_cuda("xl_attn_fwd_v2", qrw.dtype, dev, qrw=qrw, qrr=qrr,
                 k_mem=k_mem, v_mem=v_mem, k_cur=k_cur, v_cur=v_cur, rk=rk)
+    tc = _tensor_cores("xl_attn_fwd_v2", qrw.dtype, dh)
     reset_bh = _reset_i32(reset, B, dev)
     if reset_bh is not None:
         reset_bh = reset_bh.repeat(H)  # block index h * B + b
     o = torch.empty((H, B, q, dh), dtype=torch.float32, device=dev)
     m = torch.empty((H, B, 1, q), dtype=torch.float32, device=dev)
     l = torch.empty((H, B, 1, q), dtype=torch.float32, device=dev)
+    n_split, part = _key_split_scratch(tc, H * B, q, M + q, dh, dev)
     p = _native.ptr
     rc = _native.lib().tg_xl_attn_fwd(
         _native.dtype_code(qrw.dtype), 0, p(qrw), p(qrr), p(k_mem), p(v_mem),
         M * dh, p(k_cur), p(v_cur), q * dh, p(rk), None, p(reset_bh),
         p(o), p(m), p(l), H * B, B, q, M, dh, count, 1.0, int(same_length),
-        int(seed), dropout_threshold(rate), float(rate), None, 1,
+        int(seed), dropout_threshold(rate), float(rate), p(part), n_split,
         _native.stream_ptr(dev))
     _native.check(rc, "xl_attn_fwd_v2")
     _native.count_launch("xl_attn_fwd_v2")
+    if tc:
+        _native.count_launch("xl_attn_fwd_v2_tc")
     return o, m, l
 
 
 def xl_attn_fwd_v2_plain(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, count,
                          reset, same_length: bool, *, seed: int = 0,
-                         rate: float = 0.0):
+                         rate: float = 0.0, splits: int = 1):
     """Plain PyTorch version of :func:`xl_attn_fwd_v2` (the kernel's
     formulas: fp32 scores, unnormalised P dropped and rounded to the value
-    type before P V, normalised and keep-scaled after)."""
+    type before P V, normalised and keep-scaled after). With ``splits`` > 1
+    the keys are cut into that many contiguous ranges and merged as the
+    tensor-core kernel's key splits are (see :func:`xl_attn_fwd_v1_plain`)."""
     H, B, q, dh = qrw.shape
+    M = k_mem.shape[2]
     acc = _acc(qrw.dtype)
     v = torch.cat([v_mem, v_cur], dim=2)
     s = _v2_scores(qrw, qrr, k_mem, k_cur, rk, count, reset, same_length)
+    keep = None
+    if rate > 0.0:
+        keep = keep_mask(seed, H * B, q, s.shape[-1], rate,
+                         qrw.device).view(H, B, q, -1)
+    if splits > 1:
+        mask = build_attn_mask(q, M, count, same_length, reset, qrw.device)
+        o, m, l = _fwd_split(s, v, mask[None], keep, rate, splits)
+        return o, m.unsqueeze(-2), l.unsqueeze(-2)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    if rate > 0.0:
-        keep = keep_mask(seed, H * B, q, s.shape[-1], rate, qrw.device)
-        p = torch.where(keep.view(H, B, q, -1), p, 0.0)
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
     o = (p.to(v.dtype).to(acc) @ v.to(acc)) * (1.0 / l) / (1.0 - rate)
     return o, m.transpose(-1, -2), l.transpose(-1, -2)
 
@@ -212,7 +232,7 @@ class _BwdArgs(ctypes.Structure):
         [(k, ctypes.c_void_p) for k in (
             "qrw", "qrr", "kmem", "vmem", "kcur", "vcur", "rk", "bd", "reset",
             "m", "l", "o", "dout", "dq", "dqr", "dk", "dv", "dbd", "drk_part",
-            "drk", "dout_lp", "dsum")]
+            "drk", "dout_lp", "dsum", "dw")]
         + [("mem_bh", ctypes.c_longlong), ("cur_bh", ctypes.c_longlong)]
         + [(k, ctypes.c_int) for k in (
             "dtype", "bd_in", "BH", "B", "q", "M", "dh", "count",
@@ -254,6 +274,7 @@ def xl_attn_bwd_v2(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, m, l, o, do,
                 k_mem=k_mem, v_mem=v_mem, k_cur=k_cur, v_cur=v_cur, rk=rk)
     m, l, o, do = _f32(m), _f32(l), _f32(o), _f32(do)
     _check_cuda("xl_attn_bwd_v2", torch.float32, dev, m=m, l=l, o=o, do=do)
+    tc = _tensor_cores("xl_attn_bwd_v2", qrw.dtype, dh)
     reset_bh = _reset_i32(reset, B, dev)
     if reset_bh is not None:
         reset_bh = reset_bh.repeat(H)
@@ -262,14 +283,25 @@ def xl_attn_bwd_v2(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, m, l, o, do,
     dk_cur, dv_cur = torch.empty_like(k_cur), torch.empty_like(v_cur)
     drk = torch.empty((H, KP, dh), dtype=torch.float32, device=dev)
     part = torch.empty((n_split, H, KP, dh), dtype=torch.float32, device=dev)
+    do_lp = torch.empty_like(qrw) if tc else None        # do in bf16
+    dsum = (torch.empty((H, B, q), dtype=torch.float32, device=dev)
+            if tc else None)                             # rowsum(do * o)
+    # dS in rk-row order, dW[i, q-1-i+j]: written by the row pass, read by
+    # the drk pass (every entry written)
+    dw = (torch.empty((H, B, q, KP), dtype=qrw.dtype, device=dev)
+          if tc else None)
     _launch_bwd("xl_attn_bwd_v2", dev, qrw=qrw, qrr=qrr, kmem=k_mem,
                 vmem=v_mem, kcur=k_cur, vcur=v_cur, rk=rk, reset=reset_bh,
                 m=m, l=l, o=o, dout=do, dq=dqrw, dqr=dqrr, dk=dk_cur,
-                dv=dv_cur, drk_part=part, drk=drk, mem_bh=M * dh,
-                cur_bh=q * dh, dtype=_native.dtype_code(qrw.dtype), bd_in=0,
-                BH=H * B, B=B, q=q, M=M, dh=dh, count=count,
-                same_length=int(same_length), n_split=n_split, seed=int(seed),
-                thr=dropout_threshold(rate), scale=1.0, rate=float(rate))
+                dv=dv_cur, drk_part=part, drk=drk, dout_lp=do_lp, dsum=dsum,
+                dw=dw,
+                mem_bh=M * dh, cur_bh=q * dh,
+                dtype=_native.dtype_code(qrw.dtype), bd_in=0, BH=H * B, B=B,
+                q=q, M=M, dh=dh, count=count, same_length=int(same_length),
+                n_split=n_split, seed=int(seed), thr=dropout_threshold(rate),
+                scale=1.0, rate=float(rate))
+    if tc:
+        _native.count_launch("xl_attn_bwd_v2_tc")
     return dqrw, dqrr, dk_cur, dv_cur, drk
 
 
@@ -401,12 +433,35 @@ def v1_key_splits(BH: int, qlen: int, klen: int, n_sm: int) -> int:
     return max(1, min(-(-2 * n_sm // tiles), key_tiles // 2, MAX_KEY_SPLITS))
 
 
-def k2_design(dtype) -> str:
-    """Which K2f / K2b kernels a dtype runs on the card."""
+def attention_design(dtype) -> str:
+    """Which K1f / K1b and K2f / K2b kernels a dtype runs on the card."""
     if dtype == torch.bfloat16:
         return ("tensor cores (mma.sync m16n8k16 bf16, 64x64 tiles, split-key "
-                "forward with a combine kernel)")
+                "forwards with a combine kernel; K1 builds the position term "
+                "inside the tiles from a window of rk)")
     return "CUDA cores in fp32 (the exact on-card reference)"
+
+
+def _tensor_cores(name: str, dtype, dh: int) -> bool:
+    """Whether a call runs the bf16 tensor-core kernels (d_head <= 64)."""
+    tc = dtype == torch.bfloat16
+    if tc and dh > TC_TILE:
+        raise ValueError(f"{name}: bf16 takes d_head <= {TC_TILE}, got {dh}")
+    return tc
+
+
+def _key_split_scratch(tc: bool, BH: int, qlen: int, klen: int, dh: int, dev):
+    """(n_split, fp32 scratch of the partial (o, m, l) or None) of a
+    tensor-core forward on ``dev``."""
+    if not tc:
+        return 1, None
+    n_split = v1_key_splits(
+        BH, qlen, klen, torch.cuda.get_device_properties(dev)
+        .multi_processor_count)
+    if n_split == 1:
+        return 1, None
+    return n_split, torch.empty(n_split * BH * qlen * (dh + 2),
+                                dtype=torch.float32, device=dev)
 
 
 def combine_splits_plain(o_part, m_part, l_part, rate: float = 0.0):
@@ -440,22 +495,12 @@ def xl_attn_fwd_v1(q, k, v, bd, count, reset, scale: float,
     if k.shape != (BH, klen, dh) or v.shape != k.shape or \
             bd.shape != (BH, qlen, klen):
         raise ValueError("xl_attn_fwd_v1: inconsistent shapes")
-    tc = q.dtype == torch.bfloat16
-    if tc and dh > TC_TILE:
-        raise ValueError(f"xl_attn_fwd_v1: bf16 takes d_head <= {TC_TILE}, "
-                         f"got {dh}")
+    tc = _tensor_cores("xl_attn_fwd_v1", q.dtype, dh)
     reset_bh = _reset_i32(reset, BH, dev)
     o = torch.empty((BH, qlen, dh), dtype=torch.float32, device=dev)
     m = torch.empty((BH, 1, qlen), dtype=torch.float32, device=dev)
     l = torch.empty((BH, 1, qlen), dtype=torch.float32, device=dev)
-    n_split, part = 1, None
-    if tc:
-        n_split = v1_key_splits(
-            BH, qlen, klen, torch.cuda.get_device_properties(dev)
-            .multi_processor_count)
-        if n_split > 1:  # partial (o, m, l) of every split
-            part = torch.empty(n_split * BH * qlen * (dh + 2),
-                               dtype=torch.float32, device=dev)
+    n_split, part = _key_split_scratch(tc, BH, qlen, klen, dh, dev)
     p = _native.ptr
     cur_off = M * dh * k.element_size()  # current K/V follow the memory rows
     rc = _native.lib().tg_xl_attn_fwd(
@@ -487,8 +532,10 @@ def xl_attn_fwd_v1_plain(q, k, v, bd, count, reset, scale: float,
     if rate > 0.0:
         keep = keep_mask(seed, BH, qlen, k.shape[1], rate, q.device)
     if splits > 1:
-        return _fwd_v1_split(q, k, v, count, reset, same_length, s, keep,
-                             rate, splits)
+        mask = build_attn_mask(qlen, k.shape[1] - qlen, count, same_length,
+                               reset, q.device)
+        o, m, l = _fwd_split(s, v, mask, keep, rate, splits)
+        return o, m[:, None], l[:, None]
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -499,16 +546,17 @@ def xl_attn_fwd_v1_plain(q, k, v, bd, count, reset, scale: float,
     return o, m.transpose(-1, -2), l.transpose(-1, -2)
 
 
-def _fwd_v1_split(q, k, v, count, reset, same_length, s, keep, rate,
-                  splits):
-    qlen, klen = q.shape[1], k.shape[1]
-    acc = _acc(q.dtype)
-    if not (same_length and klen == qlen):  # else every key counts (NEG)
-        mask = build_attn_mask(qlen, klen - qlen, count, same_length, reset,
-                               q.device)
+def _fwd_split(s, v, mask, keep, rate, splits):
+    """The key splits of a tensor-core forward: s [..., q, klen] masked
+    scores, v [..., klen, dh], mask (True = masked) broadcastable to s, keep
+    the dropout mask or None. Returns (o [..., q, dh], m [..., q],
+    l [..., q])."""
+    q, klen = s.shape[-2], s.shape[-1]
+    acc = s.dtype
+    if not (bool(mask.all()) and q == klen):  # else every key counts (NEG)
         s = s.masked_fill(mask, float("-inf"))
     parts = []
-    for idx in torch.arange(klen, device=q.device).tensor_split(splits):
+    for idx in torch.arange(klen, device=s.device).tensor_split(splits):
         ss = s[..., idx]
         m_s = ss.amax(-1)
         p = torch.where(ss == float("-inf"), 0.0,
@@ -516,11 +564,10 @@ def _fwd_v1_split(q, k, v, count, reset, same_length, s, keep, rate,
         l_s = p.sum(-1)
         if keep is not None:
             p = torch.where(keep[..., idx], p, 0.0)
-        o_s = p.to(v.dtype).to(acc) @ v[:, idx].to(acc)
+        o_s = p.to(v.dtype).to(acc) @ v[..., idx, :].to(acc)
         parts.append((o_s, m_s, l_s))
-    o, m, l = combine_splits_plain(*(torch.stack(x) for x in zip(*parts)),
-                                   rate=rate)
-    return o, m[:, None], l[:, None]
+    return combine_splits_plain(*(torch.stack(x) for x in zip(*parts)),
+                                rate=rate)
 
 
 def xl_attn_bwd_v1(q, k, v, bd, m, l, o, do, count, reset, scale: float,
