@@ -16,12 +16,15 @@ Phases, one line each; any failure exits non-zero:
    ragged q 77 / 50 and, with the keys split across blocks, at M 4146 (B 1,
    3, 8) against the plain combine of as many key ranges (the phase prints
    the design and the splits), the fused sampler (K3), the GAN's
-   gumbel sampler (K4, K5) and its reverse chain (K6, K7) at M 64;
+   gumbel sampler (K4, K5) and its reverse chain (K6, K7) at M 64; bf16 K3,
+   K4 and K5 run the split-key, lane-tiled decode chain
+   (csrc/decode_chain_tc.cuh) and are held against the plain versions with
+   the kernel's key splits and without (the phase prints the splits);
 4. main path, generation: ``transformer_gan_torch.cli.generate.main`` on
    seeded full-width bf16 parameters, unconditional (8 lanes) and
    conditional with the debug incremental == batch memory check, with
    launch counters showing the kernels of the path ran (K1f on the tensor
-   cores, K3); then the kernel
+   cores, K3 on the bf16 decode chain); then the kernel
    path against the CPU plain path on a short full-width fp32 slice;
 5. main path, training: ``transformer_gan_torch.cli.train`` on
    experiment_baseline.yml (batch 128) over a seeded random corpus for 8
@@ -47,7 +50,12 @@ Phases, one line each; any failure exits non-zero:
    yardstick the port never calls. The plain versions of K1f / K1b at that
    shape take 5 timed calls (their kernels 5 too), and the fp32 CUDA-core
    K1f / K1b, the on-card references, are timed against their fp32 plain
-   versions.
+   versions. The decode chain: the bf16 chain's K3 (B 1 and 8, M 4146),
+   K4 (B 64, M 64) and K5 (step 5) beside the fp32 chain, the on-card
+   reference, at the same shapes; K3's streaming floor beside its bound;
+   one K3 and one K4 call traced (torch.profiler) for the kernel launches
+   a token and the device-busy share (the union of the kernels' intervals
+   over their span and over the traced call).
 
 The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -157,6 +165,16 @@ def main() -> None:
                     k: res[k] for k in ("dtype", "B", "count", "ok")},
                     chunks=[{k: c[k] for k in c if k != "count"}
                             for c in res["chunks"]])
+    from transformer_gan_torch.ops import generate as gen_ops
+    decode_points = ((1, kc.MEM_LEN), (8, kc.MEM_LEN), (64, kc.GAN_MEM))
+    phase("kernels.decode_chain",
+          design={str(d).split(".")[-1]: gen_ops.chain_design(d)
+                  for d in (torch.float32, torch.bfloat16)},
+          key_splits={f"B {B}, M {M}": gen_ops.chain_key_splits(
+              10, B, M + 32, dev) for B, M in decode_points},
+          launches_per_token_by_design={f"B {B}, M {M}": kc.chain_launches_per_token(
+              6, gen_ops.chain_key_splits(10, B, M + 32, dev))
+              for B, M in decode_points})
     dec_errs = check_decode(kc)
     chain_errs = check_chain(kc)
     torch.cuda.synchronize()
@@ -186,6 +204,11 @@ def main() -> None:
     numbers = measure(kc, card)
     numbers.update(measure_train(kc, card))
     numbers.update(measure_gan(kc, card))
+    trace = numbers["traces"]["K4"]
+    numbers["K4_tc"].update(
+        launches_per_token_traced=trace["launches_per_token"],
+        busy_share_traced=trace["busy_share"],
+        busy_share_call_traced=trace["busy_share_call"])
     paths = {"generate": summaries["launches"], "train": train_launches,
              "gan": gan_launches}
     launches = {k: sum(p[k] for p in paths.values()) for k in _native.LAUNCHES}
@@ -202,7 +225,8 @@ def main() -> None:
              "library_ms": num.get("library_ms"),
              "library_call": num.get("library_call"),
              "shape": num.get("shape")}
-        if key + "_tc" in launches:   # bf16 K1 / K2 run on the tensor cores
+        if key.startswith("xl_attn") and key + "_tc" in launches:
+            # bf16 K1 / K2 run on the tensor cores
             e["launches_tensor_core"] = launches[key + "_tc"]
             e["source_fp32"] = "transformer_gan_torch/csrc/" + (
                 "attention.cu" if "fwd" in key else "attention_bwd.cu")
@@ -235,6 +259,12 @@ def main() -> None:
               "transformer_gan_tpu/ops/pallas_attention.py:98",
               "xl_attn_bwd_v1", *worst([bwd_errs["v1"], gan_attn["v1"]]),
               numbers["bwd_v1"]),
+        # K3 / K4 / K5: every call enters generate.cu / decode.cu, which run
+        # fp32 on the reference chain of decode_chain.cuh and send bf16 to
+        # the chain of decode_chain_tc.cuh; these entries time the bf16
+        # calls at the op-points (as in earlier runs) and carry the fp32
+        # chain's times ("fp32_" keys); the "_tc" entries time the same bf16
+        # calls and add the traced launches a token and busy shares
         entry("generate_chunk (K3)", "generate.cu",
               "transformer_gan_tpu/ops/pallas_generate.py:105",
               "generate_chunk", errs["gen"]["float32"],
@@ -262,6 +292,19 @@ def main() -> None:
               "xl_attn_bwd_v2_tc",
               *(worst([bwd_errs["v2"], gan_attn["v2"]])[1],) * 2,
               numbers["bwd_v2_tc"]),
+        entry("generate_chunk_tc (K3, bf16 decode chain)",
+              "decode_chain_tc.cuh",
+              "transformer_gan_tpu/ops/pallas_generate.py:105",
+              "generate_chunk_tc", *(errs["gen"]["bfloat16"],) * 2,
+              numbers["gen_tc"]),
+        entry("decode_chunk_tc (K4, bf16 decode chain)", "decode_chain_tc.cuh",
+              "transformer_gan_tpu/ops/pallas_decode.py:359",
+              "decode_chunk_tc", *(worst([dec_errs["K4"]])[1],) * 2,
+              numbers["K4_tc"]),
+        entry("decode_step_tc (K5, bf16 decode chain)", "decode_chain_tc.cuh",
+              "transformer_gan_tpu/ops/pallas_decode.py:82",
+              "decode_step_tc", *(worst([dec_errs["K5"]])[1],) * 2,
+              numbers["K5_tc"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -340,7 +383,8 @@ def run_main_path(_native) -> dict:
                         "tokens_per_s": summary["tokens"]
                         / summary["generate_seconds"]}
     launches = dict(_native.LAUNCHES)
-    for k in ("xl_attn_fwd_v2", "xl_attn_fwd_v2_tc", "generate_chunk"):
+    for k in ("xl_attn_fwd_v2", "xl_attn_fwd_v2_tc", "generate_chunk",
+              "generate_chunk_tc"):
         if launches[k] == 0:
             fail(f"the main path never launched {k}")
     phase("main_path", launches=launches, generation_length=GEN_LENGTH,
@@ -379,8 +423,16 @@ def check_slice_reference() -> dict:
 
 
 def measure(kc, card: str) -> dict:
-    """Kernel and plain times at M 4146 in bf16 (CUDA events)."""
+    """Kernel and plain times at M 4146 in bf16 (CUDA events): the decode
+    chain's K3 (first one traced K3 and K4 call, the process's first
+    traces), then the attention forwards."""
+    from transformer_gan_torch import profile_generate as pg
+    from transformer_gan_torch.ops import generate as gen_ops
     res = {}
+    traces = {"K3": pg.profile_chunk("K3", 1, kc.MEM_LEN, top=6),
+              "K4": pg.profile_chunk("K4", B_GAN, kc.GAN_MEM, top=6)}
+    phase("numbers.decode_chain_trace", card=card, **traces)
+    res["traces"] = traces
     for B in (1, 8):
         case = kc.GenerateCase("bfloat16", B, kc.MEM_LEN)
         g = case.noise(32)
@@ -395,16 +447,46 @@ def measure(kc, card: str) -> dict:
                 "plain_us_per_step": plain_ms * 1000 / 32,
                 "plain_us_per_token": plain_ms * 1000 / (32 * B),
                 "plain_events_per_s": B * 32 / (plain_ms / 1000)}
+        bound, by = kc.bound_ms(*kc.sampler_work(32, B, kc.MEM_LEN,
+                                                 kc.MEM_LEN))
+        # worked out, not measured: the phase line carries them, the
+        # kernels line only what this run measured (and the bound)
+        splits = gen_ops.chain_key_splits(10, B, kc.MEM_LEN + 32, "cuda:0")
+        line.update(bound_ms=bound, bound_by=by,
+                    stream_floor_ms=kc.sampler_stream_bytes(
+                        32, B, kc.MEM_LEN, kc.MEM_LEN) / kc.PEAK_BYTES * 1e3,
+                    key_splits=splits,
+                    launches_per_token_by_design=kc.chain_launches_per_token(
+                        6, splits))
         phase("numbers.generate", **line)
+        num = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by,
+               "shape": f"32 tokens, B {B}, M {kc.MEM_LEN}, bf16"}
         if B == 1:
-            bound, by = kc.bound_ms(*kc.sampler_work(32, 1, kc.MEM_LEN,
-                                                     kc.MEM_LEN))
-            res["gen"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                          "bound_by": by, "library_ms": None,
-                          "library_call": "none computes top-k sampling "
-                          "through the decoder",
-                          "shape": f"32 tokens, B 1, M {kc.MEM_LEN}, bf16"}
+            num.update(library_ms=None, library_call="none computes top-k "
+                       "sampling through the decoder")
+            res["gen"] = dict(num)
+            res["gen_tc"] = dict(
+                num,
+                launches_per_token_traced=traces["K3"]["launches_per_token"],
+                busy_share_traced=traces["K3"]["busy_share"],
+                busy_share_call_traced=traces["K3"]["busy_share_call"])
+        else:
+            res["gen_tc"]["other_shapes"] = [num]
         del case
+    # the fp32 chain, the on-card reference
+    case = kc.GenerateCase("float32", 1, kc.MEM_LEN)
+    g = case.noise(32)
+    ms, plain_ms = kc.time_in_turns(
+        lambda: case.run(32, g), lambda: case.run(32, g, plain=True), iters=2)
+    ref = {"fp32_ms": ms, "fp32_plain_ms": plain_ms,
+           "fp32_bound_ms": kc.bound_ms(*kc.sampler_work(
+               32, 1, kc.MEM_LEN, kc.MEM_LEN, es=4), "float32")[0],
+           "fp32_shape": f"32 tokens, B 1, M {kc.MEM_LEN}, fp32 (the "
+           "reference chain of decode_chain.cuh)"}
+    res["gen"].update(ref)
+    phase("numbers.generate_fp32", card=card, **ref)
+    del case
     for variant in ("v2", "v1"):
         kernel, plain, args = kc.attention_case(variant, torch.bfloat16, 128,
                                                 1, kc.MEM_LEN)
@@ -708,7 +790,8 @@ def run_train_path(_native) -> tuple[dict, str]:
             toks = [l.strip() for l in f if l.strip()]
         if len(toks) != 256 or any(t not in vocab for t in toks):
             fail(f"{fp}: generation from the trained run is malformed")
-    if len(summary["files"]) != 2 or launches["generate_chunk"] == 0:
+    if (len(summary["files"]) != 2 or launches["generate_chunk"] == 0
+            or launches["generate_chunk_tc"] == 0):
         fail(f"generation from the trained run: {summary}, {launches}")
     for k in total:
         total[k] += launches[k]
@@ -1024,12 +1107,12 @@ def run_gan_path(_native, mle_run: str) -> dict:
     total = dict.fromkeys(_native.LAUNCHES, 0)
     runs = {}
     for name, tpu, env, need in (
-            ("chunk_res", {}, None, ("decode_chunk", "chain_bwd_res",
-                                     "xl_attn_fwd_v2", "xl_attn_bwd_v2",
-                                     "xl_attn_fwd_v2_tc",
+            ("chunk_res", {}, None, ("decode_chunk", "decode_chunk_tc",
+                                     "chain_bwd_res", "xl_attn_fwd_v2",
+                                     "xl_attn_bwd_v2", "xl_attn_fwd_v2_tc",
                                      "xl_attn_bwd_v2_tc")),
             ("step_recompute", {"gan_chain_bwd": "kernel_recompute"}, "0",
-             ("decode_step", "chain_bwd_recompute"))):
+             ("decode_step", "decode_step_tc", "chain_bwd_recompute"))):
         cfg = _train_cfg_file(work, f"{name}.yml", "experiment_cnn.yml",
                               **GAN_OVERRIDES, load_from_previous=warm,
                               DISCRIMINATOR=disc, TPU=tpu)
@@ -1140,33 +1223,44 @@ def measure_gan(kc, card: str) -> dict:
     del cases
     torch.cuda.empty_cache()
 
-    case = kc.DecodeCase("bfloat16", B_GAN, kc.GAN_MEM)
-    g = case.noise(32)
-    ms, plain_ms = kc.time_in_turns(lambda: case.run(32, g),
-                                    lambda: case.run(32, g, plain=True), 5)
-    bound, by = kc.bound_ms(*kc.sampler_work(32, B_GAN, kc.GAN_MEM,
-                                             kc.GAN_MEM))
     no_lib = "none computes the gumbel sampler through the decoder"
-    res["K4"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                 "bound_by": by, "library_ms": None, "library_call": no_lib,
-                 "shape": f"32 tokens, B {B_GAN}, M {kc.GAN_MEM}, bf16"}
-    L, _, H, B, _, dh = case.kv.shape
-    staged = torch.zeros((L, 2, H, B, 32, dh), dtype=case.kv.dtype,
-                         device=case.kv.device)
+    # K4 and K5 on the bf16 chain (the entries of both names) and on the
+    # fp32 reference chain (the "fp32_" keys of the plain names)
+    for dtype, es in (("bfloat16", 2), ("float32", 4)):
+        case = kc.DecodeCase(dtype, B_GAN, kc.GAN_MEM)
+        g = case.noise(32)
+        ms, plain_ms = kc.time_in_turns(lambda: case.run(32, g),
+                                        lambda: case.run(32, g, plain=True), 5)
+        bound, by = kc.bound_ms(*kc.sampler_work(32, B_GAN, kc.GAN_MEM,
+                                                 kc.GAN_MEM, es=es), dtype)
+        k4 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": by, "library_ms": None, "library_call": no_lib,
+              "shape": f"32 tokens, B {B_GAN}, M {kc.GAN_MEM}, {dtype}"}
+        L, _, H, B, _, dh = case.kv.shape
+        staged = torch.zeros((L, 2, H, B, 32, dh), dtype=case.kv.dtype,
+                             device=case.kv.device)
 
-    def step(plain):
-        fn = (case.ops.fused_decode_step_plain if plain
-              else case.ops.fused_decode_step)
-        return fn(case.stacked, case.cfg, case.kv, case.R, staged, case.ids,
-                  g[5], 5, case.count)
+        def step(plain):
+            fn = (case.ops.fused_decode_step_plain if plain
+                  else case.ops.fused_decode_step)
+            return fn(case.stacked, case.cfg, case.kv, case.R, staged,
+                      case.ids, g[5], 5, case.count)
 
-    ms, plain_ms = kc.time_in_turns(lambda: step(False), lambda: step(True), 20)
-    bound, by = kc.bound_ms(*kc.sampler_work(1, B_GAN, kc.GAN_MEM, kc.GAN_MEM,
-                                             t0=5))
-    res["K5"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                 "bound_by": by, "library_ms": None, "library_call": no_lib,
-                 "shape": f"1 token at step 5, B {B_GAN}, M {kc.GAN_MEM}, bf16"}
-    del case, staged
+        ms, plain_ms = kc.time_in_turns(lambda: step(False),
+                                        lambda: step(True), 20)
+        bound, by = kc.bound_ms(*kc.sampler_work(1, B_GAN, kc.GAN_MEM,
+                                                 kc.GAN_MEM, es=es, t0=5), dtype)
+        k5 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": by, "library_ms": None, "library_call": no_lib,
+              "shape": f"1 token at step 5, B {B_GAN}, M {kc.GAN_MEM}, {dtype}"}
+        for key, num in (("K4", k4), ("K5", k5)):
+            if dtype == "bfloat16":
+                res[key], res[key + "_tc"] = dict(num), dict(num)
+            else:
+                res[key].update({"fp32_" + k: num[k]
+                                 for k in ("ms", "plain_ms", "bound_ms",
+                                           "shape")})
+        del case, staged
     chain = kc.ChainCase("bfloat16", B_GAN, kc.GAN_MEM)
     for key, variant, recompute in (("K6", "res", False),
                                     ("K7", "recompute", True)):

@@ -11,7 +11,10 @@ bf16 tensor-core K2f / K2b at ragged shapes, with split keys at M 4146 and
 at the training batch; the bf16 tensor-core K1f / K1b at the MLE step's
 shape, the cnn config's, ragged q at M 4146 and the prime shape with split
 keys; the GAN sampler (K4, K5) and reverse chain (K6, K7) at M 64, B 8, 24 and 64,
-with an odd count."""
+with an odd count; the bf16 decode chain of K3 / K4 / K5 (split-key decode
+attention, lane-tiled GEMVs) at B 1, 3 and 8 with M 4146 and ragged M, at
+the GAN op-point and narrower lane tiles, K5 at step 5, determinism and its
+launch counters."""
 
 import pytest
 import torch
@@ -289,3 +292,85 @@ def test_gan_wrappers_count_launches(cuda):
     assert _native.LAUNCHES["decode_step"] == 3
     assert _native.LAUNCHES["chain_bwd_res"] == 1
     assert _native.LAUNCHES["chain_bwd_recompute"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The bf16 decode chain (K3, K4, K5: csrc/decode_chain_tc.cuh): split-key
+# decode attention, lane-tiled GEMVs; held against the plain versions with
+# the kernel's splits and without (kernel_check.check_generate / check_decode)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,M,count", [
+    (1, kc.MEM_LEN, kc.MEM_LEN),   # the op-point: front-padded, full, 27 splits
+    (3, kc.MEM_LEN, 2000),         # partly filled: splits cross the ring seam
+    (8, kc.MEM_LEN, kc.MEM_LEN),
+    (1, 77, 0),                    # ragged M, empty cache: only the ring
+    (3, 77, 40),
+    (8, 300, 300),
+    (1, 20000, 20000),             # 64 splits of ~313 keys: two tiles a split
+])
+def test_bf16_chain_generate_matches_plain(cuda, B, M, count):
+    res = kc.check_generate("bfloat16", B, count, M=M)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("B,count", [(64, 0), (64, 37), (64, kc.GAN_MEM),
+                                     (5, 30), (40, kc.GAN_MEM)])
+def test_bf16_chain_decode_chunk_matches_plain(cuda, B, count):
+    """K4 at the GAN op-point (B 64, M 64), a narrow lane tile (B 5) and
+    three m-tiles (B 40)."""
+    res = kc.check_decode("bfloat16", B, count)
+    assert res["ok"], res
+
+
+def test_bf16_chain_decode_step_at_step_5(cuda):
+    """K5 at chunk step 5 of a 32-row ring holding five earlier rows: the
+    staged row it writes against the plain step with the kernel's splits
+    and without, within ATTN_REL_TOL_BF16 x max|ref|."""
+    case = kc.DecodeCase("bfloat16", 64, kc.GAN_MEM)
+    L, _, H, B, _, dh = case.kv.shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ring = (torch.randn((L, 2, H, B, 32, dh), generator=gen, device="cuda")
+            * 0.5).to(case.kv.dtype)
+    ring[..., 5:, :] = 0
+    g = case.noise(1)[0]
+    out = case.ops.fused_decode_step(case.stacked, case.cfg, case.kv, case.R,
+                                     ring.clone(), case.ids, g, 5, case.count)
+    for splits in (case.splits(32), None):
+        ref = case.ops.fused_decode_step_plain(
+            case.stacked, case.cfg, case.kv, case.R, ring.clone(), case.ids, g,
+            5, case.count, splits)
+        row, ref_row = out[2][..., 5, :].float(), ref[2][..., 5, :].float()
+        assert torch.equal(out[2][..., :5, :], ring[..., :5, :])
+        err = float((row - ref_row).abs().max())
+        assert err <= kc.ATTN_REL_TOL_BF16 * float(ref_row.abs().max()), err
+        assert torch.equal(out[1].argmax(-1).view(B, 1), out[0].long())
+
+
+def test_bf16_chain_is_deterministic(cuda):
+    """The fixed-order split combine and K-split sums: two runs give
+    bitwise-equal ids and staged rows."""
+    gen_case = kc.GenerateCase("bfloat16", 1, kc.MEM_LEN)
+    g = gen_case.noise(32)
+    a, b = gen_case.run(32, g), gen_case.run(32, g)
+    assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+    dec = kc.DecodeCase("bfloat16", 64, kc.GAN_MEM)
+    g = dec.noise(32)
+    a, b = dec.run(32, g), dec.run(32, g)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[2], b[2])
+
+
+def test_bf16_chain_counts_launches(cuda):
+    _native.reset_launches()
+    for dtype in ("float32", "bfloat16"):
+        case = kc.GenerateCase(dtype, 2, 10, M=64)
+        case.run(3, case.noise(3))
+    dec = kc.DecodeCase("bfloat16", 8, 10)
+    g = dec.noise(3)
+    dec.run(3, g)
+    dec.run_steps(3, g)
+    assert _native.LAUNCHES["generate_chunk"] == 2
+    assert _native.LAUNCHES["generate_chunk_tc"] == 1
+    assert _native.LAUNCHES["decode_chunk"] == _native.LAUNCHES["decode_chunk_tc"] == 1
+    assert _native.LAUNCHES["decode_step"] == _native.LAUNCHES["decode_step_tc"] == 3

@@ -32,15 +32,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo"]
 
 # kernel name -> launches since the last reset_launches()
-# (the "_tc" entries count the bf16 K1f / K1b / K2f / K2b calls that ran the
-# tensor-core kernels, a subset of the calls of the plain names)
+# (the "_tc" entries count the bf16 calls, a subset of the calls of the
+# plain names: K1f / K1b / K2f / K2b on the tensor-core kernels, K3 / K4 /
+# K5 on the bf16 decode chain of csrc/decode_chain_tc.cuh)
 LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
                             "xl_attn_bwd_v2": 0, "xl_attn_bwd_v1": 0,
                             "xl_attn_fwd_v2_tc": 0, "xl_attn_bwd_v2_tc": 0,
                             "xl_attn_fwd_v1_tc": 0, "xl_attn_bwd_v1_tc": 0,
                             "generate_chunk": 0, "decode_chunk": 0,
-                            "decode_step": 0, "chain_bwd_res": 0,
-                            "chain_bwd_recompute": 0}
+                            "decode_step": 0, "generate_chunk_tc": 0,
+                            "decode_chunk_tc": 0, "decode_step_tc": 0,
+                            "chain_bwd_res": 0, "chain_bwd_recompute": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -146,6 +148,8 @@ def lib() -> ctypes.CDLL:
             handle.tg_generate_chunk.restype = i32
             handle.tg_sizeof_gen_args.argtypes = []
             handle.tg_sizeof_gen_args.restype = i32
+            handle.tg_decode_chain_layout.argtypes = [vp]
+            handle.tg_decode_chain_layout.restype = None
             for name in ("tg_decode_chunk", "tg_decode_step", "tg_chain_bwd"):
                 getattr(handle, name).argtypes = [vp, vp]
                 getattr(handle, name).restype = i32

@@ -12,12 +12,15 @@
 // temperature does not move, so no temperature enters.
 //
 // The per-token chain, what bounds it (bytes: the K/V cache and the weights
-// each token) and the design are in decode_chain.cuh, shared with the
-// generation sampler (K3). The TPU kernels align the position term with lane
-// rolls; here positions follow the distance rule of the plain decode step
+// each token) and the design are in decode_chain.cuh (fp32) and
+// decode_chain_tc.cuh (bf16), shared with the generation sampler (K3). The
+// TPU kernels align the position term with lane rolls; here positions
+// follow the distance rule of the plain decode step
 // (big slot j at distance M - j + t, staged slot s at t - s). K5 is K4's
 // code for one token at chunk step t0, behind its own entry point.
-#include "decode_chain.cuh"
+#include <type_traits>
+
+#include "decode_chain_tc.cuh"
 
 namespace {
 
@@ -31,6 +34,8 @@ __global__ void gumbel_onehot_kernel(const T* __restrict__ logits, const float* 
   __shared__ float redv[32];
   __shared__ int redi[32];
   const int b = blockIdx.x;
+  pdl_wait();  // bf16: launched with programmatic serialization (decode_chain_tc.cuh)
+  pdl_trigger();
   const long long row = static_cast<long long>(b) * V;
   ArgMax best{-INFINITY, V};
   for (int v = threadIdx.x; v < V; v += blockDim.x)
@@ -49,12 +54,17 @@ int decode_call(const GenArgs* a, void* stream) {
     using T = decltype(zero);
     const int B = a->B, V = a->V;
     float* onehot = static_cast<float*>(a->onehot);
-    return run_chain<T>(*a, st, [&](const T* lg, int i, int) -> int {
+    auto samp = [&](const T* lg, int i, int) -> int {
       const long long off = static_cast<long long>(i) * B * V;
+      if constexpr (!std::is_same<T, float>::value)
+        return static_cast<int>(launch_pdl(gumbel_onehot_kernel<T>, dim3(B), 256, 0, st, lg,
+                                           a->g + off, a->ids, onehot + off, V));
       gumbel_onehot_kernel<T><<<B, 256, 0, st>>>(lg, a->g + off, a->ids, onehot + off, V);
       TG_CHECK();
       return 0;
-    });
+    };
+    if constexpr (std::is_same<T, float>::value) return run_chain(*a, st, samp);
+    else return run_chain_tc(*a, st, samp);
   };
   if (a->dtype == 0) return run(0.f);
   if (a->dtype == 1) return run(__nv_bfloat16{});

@@ -23,8 +23,11 @@
 // Decode attention takes one block per (h, b) and a warp per key, lanes
 // along d_head, so each key row is one coalesced read; GEMVs take a block
 // per (32 columns, lane) with 8 warps splitting K. At small B this
-// leaves the card mostly idle (H * B blocks); splitting M across blocks, a
-// persistent kernel or a CUDA graph is later work.
+// leaves the card mostly idle (H * B blocks). This chain (run_chain and its
+// decode_attn_kernel) runs fp32 only, the exact on-card reference; bf16 runs
+// the split-key, lane-tiled chain of decode_chain_tc.cuh (run_chain_tc).
+// gemv_kernel, ln_kernel and embed_kernel stay generic: the reverse chain
+// (chain_bwd.cu, K6 / K7) runs them in both types.
 //
 // Positions follow the distance rule of the plain decode step: at chunk step
 // t, big slot j sits at distance M - j + t and staged slot s at t - s.
@@ -126,13 +129,12 @@ __global__ void ln_kernel(const T* __restrict__ a, const T* __restrict__ bsrc,
 // at distance M - j + t (R row j - t), staged slot s at t - s (R row
 // M - t + s); R row r holds distance M - r. Masked: big j < max(M - count,
 // t + sl), staged s > t.
-template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
-decode_attn_kernel(const T* __restrict__ qb, const T* __restrict__ Kb,
-                   const T* __restrict__ Vb, const T* __restrict__ sk,
-                   const T* __restrict__ sv, const T* __restrict__ R,
-                   const T* __restrict__ rwb, const T* __restrict__ rrb,
-                   T* __restrict__ ctx, int M, int C, int HD, int dh, int t, int count,
+decode_attn_kernel(const float* __restrict__ qb, const float* __restrict__ Kb,
+                   const float* __restrict__ Vb, const float* __restrict__ sk,
+                   const float* __restrict__ sv, const float* __restrict__ R,
+                   const float* __restrict__ rwb, const float* __restrict__ rrb,
+                   float* __restrict__ ctx, int M, int C, int HD, int dh, int t, int count,
                    int sl, float scale) {
   extern __shared__ float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
@@ -147,9 +149,9 @@ decode_attn_kernel(const T* __restrict__ qb, const T* __restrict__ Kb,
 
   const int hoff = h * dh;
   for (int d = threadIdx.x; d < dh; d += blockDim.x) {
-    const float qv = to_f<T>(qb[b * HD + hoff + d]);
-    qw[d] = rnd<T>(qv + to_f<T>(rwb[hoff + d]));
-    qr[d] = rnd<T>(qv + to_f<T>(rrb[hoff + d]));
+    const float qv = qb[b * HD + hoff + d];
+    qw[d] = qv + rwb[hoff + d];
+    qr[d] = qv + rrb[hoff + d];
   }
   __syncthreads();
 
@@ -157,24 +159,24 @@ decode_attn_kernel(const T* __restrict__ qb, const T* __restrict__ Kb,
   const int n_big = M - jlo;
   const int n_keys = n_big + t + 1;
 
-  auto key_row = [&](int kk, const T* big, const T* staged) -> const T* {
+  auto key_row = [&](int kk, const float* big, const float* staged) -> const float* {
     if (kk < n_big) return big + (hb * M + jlo + kk) * dh;
     return staged + (hb * C + (kk - n_big)) * dh;
   };
 
   float lmax = -INFINITY;
   for (int kk = warp; kk < n_keys; kk += nw) {
-    const T* krow = key_row(kk, Kb, sk);
+    const float* krow = key_row(kk, Kb, sk);
     const int r = kk < n_big ? jlo + kk - t : M - t + (kk - n_big);
-    const T* rrow = R + static_cast<long long>(r) * HD + hoff;
+    const float* rrow = R + static_cast<long long>(r) * HD + hoff;
     float ac = 0.f, bd = 0.f;
     for (int d = lane; d < dh; d += 32) {
-      ac += qw[d] * to_f<T>(krow[d]);
-      bd += qr[d] * to_f<T>(rrow[d]);
+      ac += qw[d] * krow[d];
+      bd += qr[d] * rrow[d];
     }
     ac = warp_sum(ac);
     bd = warp_sum(bd);
-    const float s = rnd<T>(rnd<T>(ac) + rnd<T>(bd)) * scale;
+    const float s = (ac + bd) * scale;
     if (lane == 0) sc[kk] = s;
     lmax = fmaxf(lmax, s);
   }
@@ -191,12 +193,12 @@ decode_attn_kernel(const T* __restrict__ qb, const T* __restrict__ Kb,
 #pragma unroll
   for (int c = 0; c < kMaxDPL; ++c) acc[c] = 0.f;
   for (int kk = warp; kk < n_keys; kk += nw) {
-    const float p = rnd<T>(sc[kk] / denom);
-    const T* vrow = key_row(kk, Vb, sv);
+    const float p = sc[kk] / denom;
+    const float* vrow = key_row(kk, Vb, sv);
 #pragma unroll
     for (int c = 0; c < kMaxDPL; ++c) {
       const int d = lane + 32 * c;
-      if (d < dh) acc[c] += p * to_f<T>(vrow[d]);
+      if (d < dh) acc[c] += p * vrow[d];
     }
   }
 #pragma unroll
@@ -208,7 +210,7 @@ decode_attn_kernel(const T* __restrict__ qb, const T* __restrict__ Kb,
   for (int d = threadIdx.x; d < dh; d += blockDim.x) {
     float s = 0.f;
     for (int w = 0; w < nw; ++w) s += part[w * dh + d];
-    ctx[b * HD + hoff + d] = from_f<T>(s);
+    ctx[b * HD + hoff + d] = s;
   }
 }
 
@@ -252,6 +254,7 @@ struct GenArgs {
   int count;
   int t0;             // chunk step of the call's first token
   int C;              // rows of the staged ring (>= t0 + n)
+  int splits;         // bf16: key splits of decode attention (decode_chain_tc.cuh)
   float scale, temperature;
   const void* kv;     // [L, 2, H, B, M, dh] big K/V cache (the XL memory)
   const void* R;      // [L, M + 1, HD], row r = distance M - r
@@ -289,12 +292,22 @@ struct GenArgs {
   void* ff;
   void* logits;       // [B, V]
   void* onehot;       // [n, B, V] float out (K4, K5), or null
+  // bf16 only (decode_chain_tc.cuh): W^T of each product, K padded to a
+  // multiple of 32 and N to a multiple of 8 with zeros
+  const void* qkv_t;  // [L, npad(3 HD), kpad(HD)]: q, k, v columns
+  const void* o_t;    // [L, npad(HD), kpad(HD)]
+  const void* ff1_t;  // [L, npad(DI), kpad(HD)]
+  const void* ff2_t;  // [L, npad(HD), kpad(DI)]
+  const void* lg_t;   // [npad(V), kpad(HD)]
+  float* opart;       // [splits, B, HD] float scratch when splits > 1
+  float* ml;          // [splits, B, H, 2] float scratch when splits > 1
+  const void* R_h;    // [L, H, M + 1, dh]: R with each head's rows contiguous
 };
 
 // The chain for tokens t0 .. t0 + n - 1 of a chunk: per token the embed, the
 // L layers and the logits GEMV; then sample(logits, i, t) launches the
 // caller's sampling epilogue for the call's token i at chunk step t.
-template <typename T, typename Sample>
+template <typename Sample>
 static int run_chain(const GenArgs& a, cudaStream_t st, Sample sample) {
   const int L = a.L, B = a.B, M = a.M, HD = a.HD, DI = a.DI, H = a.H, V = a.V, n = a.n;
   const int C = a.C;
@@ -302,6 +315,7 @@ static int run_chain(const GenArgs& a, cudaStream_t st, Sample sample) {
   // per layer: K then V, each h-major [H, B, rows, dh]
   const long long big_kv = static_cast<long long>(B) * M * HD;
   const long long st_kv = static_cast<long long>(B) * C * HD;
+  using T = float;
   auto P = [](const void* p) { return static_cast<const T*>(p); };
   auto W = [](void* p) { return static_cast<T*>(p); };
   T* staged = W(a.staged);
@@ -334,7 +348,7 @@ static int run_chain(const GenArgs& a, cudaStream_t st, Sample sample) {
   const size_t attn_smem =
       sizeof(float) * (2 * dh + 32 + (kAttnThreads / 32) * dh + M + C);
   {
-    cudaError_t e = tg_allow_smem(decode_attn_kernel<T>, attn_smem);
+    cudaError_t e = tg_allow_smem(decode_attn_kernel, attn_smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
 
@@ -363,7 +377,7 @@ static int run_chain(const GenArgs& a, cudaStream_t st, Sample sample) {
                         row_h))) return rc;
       if ((rc = gemv_to(w_in, HD, P(a.v_w) + sq, HD, HD, nullptr, 0, skl + st_kv + row_t,
                         row_b, dh, row_h))) return rc;
-      decode_attn_kernel<T><<<dim3(H, B), kAttnThreads, attn_smem, st>>>(
+      decode_attn_kernel<<<dim3(H, B), kAttnThreads, attn_smem, st>>>(
           W(a.q), Kl, Kl + big_kv, skl, skl + st_kv,
           P(a.R) + static_cast<long long>(l) * (M + 1) * HD, P(a.rwb), P(a.rrb),
           W(a.ctx), M, C, HD, dh, t, a.count, a.same_length ? 1 : 0, a.scale);

@@ -5,9 +5,11 @@
 // inference sampling, each one embed -> L decoder layers against the big K/V
 // cache plus the staged ring -> logits -> logit surgery -> softmax -> top-k
 // -> floor -> gumbel argmax -> the token fed back for the next step. The
-// per-token chain and what bounds it are in decode_chain.cuh; this file adds
-// the sampling epilogue.
-#include "decode_chain.cuh"
+// per-token chain and what bounds it are in decode_chain.cuh (fp32) and
+// decode_chain_tc.cuh (bf16); this file adds the sampling epilogue.
+#include <type_traits>
+
+#include "decode_chain_tc.cuh"
 
 namespace {
 
@@ -26,6 +28,8 @@ __global__ void sample_kernel(const T* __restrict__ logits, const float* __restr
   float* redv = p + V;        // [32]
   int* redi = reinterpret_cast<int*>(redv + 32);  // [32]
   const int b = blockIdx.x;
+  pdl_wait();  // bf16: launched with programmatic serialization (decode_chain_tc.cuh)
+  pdl_trigger();
   const bool suppress = num_empty > 0 && er[b] >= num_empty;
 
   float lmax = -INFINITY;
@@ -98,14 +102,21 @@ extern "C" int tg_generate_chunk(const GenArgs* a, void* stream) {
     const size_t samp_smem = sizeof(float) * (V + 64);
     cudaError_t e = tg_allow_smem(sample_kernel<T>, samp_smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    return run_chain<T>(*a, st, [&](const T* lg, int i, int) -> int {
+    auto samp = [&](const T* lg, int i, int) -> int {
+      const float* g = a->g + static_cast<long long>(i) * B * V;
+      if constexpr (!std::is_same<T, float>::value)
+        return static_cast<int>(launch_pdl(sample_kernel<T>, dim3(B), 256, samp_smem, st,
+                                           lg, g, a->ids, a->er, a->tokens + i * B, V,
+                                           a->technique, a->topk, a->temperature,
+                                           a->exclude_bos, a->num_empty, a->empty_token));
       sample_kernel<T><<<B, 256, samp_smem, st>>>(
-          lg, a->g + static_cast<long long>(i) * B * V, a->ids, a->er, a->tokens + i * B,
-          V, a->technique, a->topk, a->temperature, a->exclude_bos, a->num_empty,
-          a->empty_token);
+          lg, g, a->ids, a->er, a->tokens + i * B, V, a->technique, a->topk, a->temperature,
+          a->exclude_bos, a->num_empty, a->empty_token);
       TG_CHECK();
       return 0;
-    });
+    };
+    if constexpr (std::is_same<T, float>::value) return run_chain(*a, st, samp);
+    else return run_chain_tc(*a, st, samp);
   };
   if (a->dtype == 0) return run(0.f);
   if (a->dtype == 1) return run(__nv_bfloat16{});
@@ -113,3 +124,13 @@ extern "C" int tg_generate_chunk(const GenArgs* a, void* stream) {
 }
 
 extern "C" int tg_sizeof_gen_args() { return static_cast<int>(sizeof(GenArgs)); }
+
+// The bf16 chain's layout constants (decode_chain_tc.cuh), for the Python
+// side to check its own against: W^T's K and N padding, the key tile, the
+// most key splits.
+extern "C" void tg_decode_chain_layout(int* out) {
+  out[0] = kKAlign;
+  out[1] = kGemvN;
+  out[2] = kKeyTile;
+  out[3] = kMaxSplits;
+}

@@ -311,12 +311,24 @@ class GenerateCase:
         return gumbel_noise((n, self.B, self.cfg.n_token), self.gen,
                             self.device)
 
-    def run(self, n: int, g, plain: bool = False, return_logits=False):
-        fn = (gen_ops.fused_generate_chunk_plain if plain
-              else gen_ops.fused_generate_chunk)
-        return fn(self.stacked, self.cfg, self.scfg, self.kv, self.R,
-                  self.ids, self.er, g, self.count, n, same_length=True,
-                  return_logits=return_logits)
+    def splits(self, n: int):
+        """The key splits the kernel runs for an n-token chunk (bf16), or
+        None (fp32: the unsplit chain)."""
+        return _chain_splits(self.cfg, self.B, self.M + n, self.device)
+
+    def run(self, n: int, g, plain: bool = False, return_logits=False,
+            splits=None):
+        """The kernel, or its plain version (``splits``: the rounding of
+        the bf16 kernel's split attention, see ``decode_attention_plain``)."""
+        if plain:
+            return gen_ops.fused_generate_chunk_plain(
+                self.stacked, self.cfg, self.scfg, self.kv, self.R, self.ids,
+                self.er, g, self.count, n, same_length=True,
+                return_logits=return_logits, splits=splits)
+        return gen_ops.fused_generate_chunk(
+            self.stacked, self.cfg, self.scfg, self.kv, self.R, self.ids,
+            self.er, g, self.count, n, same_length=True,
+            return_logits=return_logits)
 
     def advance(self, out, n: int) -> None:
         """Continue from a chunk's outputs: merge its staged K/V, feed its
@@ -324,6 +336,12 @@ class GenerateCase:
         self.ids, self.er = out[0], out[1]
         self.kv = torch.cat([self.kv[..., n:, :], out[3]], dim=4)
         self.count = min(self.count + n, self.M)
+
+
+def _chain_splits(cfg, B: int, n_keys: int, device):
+    if cfg.cdtype != torch.bfloat16:
+        return None
+    return gen_ops.chain_key_splits(cfg.n_head, B, n_keys, device)
 
 
 def first_divergence(a: torch.Tensor, b: torch.Tensor) -> list:
@@ -338,7 +356,9 @@ def check_generate(dtype: str, B: int, count: int, chunks=(32, 7),
                    **kw) -> dict:
     """A full chunk, then a remainder chunk continuing from the kernel's
     state; each chunk run by the kernel and by the plain version on the
-    same operands and noise."""
+    same operands and noise. bf16 (the split-key chain) is held against
+    the plain version with the kernel's splits and against the unsplit one,
+    each within LOGIT_ULPS_BF16 on the first step's logits."""
     case = GenerateCase(dtype, B, count, **kw)
     res = {"dtype": dtype, "B": B, "count": count, "chunks": []}
     ok = True
@@ -359,8 +379,17 @@ def check_generate(dtype: str, B: int, count: int, chunks=(32, 7),
             chunk["ok"] = ids_equal and stage_err <= STAGE_TOL_F32
         else:
             ulp = bf16_ulp(float(lg_p.abs().max()))
-            chunk["logit0_ulps"] = logit_err / ulp
-            chunk["ok"] = logit_err <= LOGIT_ULPS_BF16 * ulp
+            chunk["logit0_ulps_vs_unsplit"] = logit_err / ulp
+            S = case.splits(n)
+            s_out = case.run(n, g, plain=True, return_logits=True, splits=S)
+            lg_s = s_out[4][0].float()
+            s_err = float((lg_k - lg_s).abs().max())
+            ulp_s = bf16_ulp(float(lg_s.abs().max()))
+            chunk.update(splits=S, logit0_ulps=s_err / ulp_s,
+                         ids_equal_split_plain=bool(torch.equal(k_out[2],
+                                                                s_out[2])))
+            chunk["ok"] = (s_err <= LOGIT_ULPS_BF16 * ulp_s
+                           and logit_err <= LOGIT_ULPS_BF16 * ulp)
         ok = ok and chunk["ok"]
         res["chunks"].append(chunk)
         case.advance(k_out, n)
@@ -404,24 +433,36 @@ class DecodeCase:
         return gumbel_noise((n, self.B, self.cfg.n_token), self.gen,
                             self.device)
 
-    def run(self, n: int, g, plain: bool = False):
-        """K4 (or its plain version) over n tokens: (ids, one-hots, staged)."""
-        fn = (self.ops.fused_decode_chunk_plain if plain
-              else self.ops.fused_decode_chunk)
-        return fn(self.stacked, self.cfg, self.kv, self.R, self.ids, g,
-                  self.count, n)
+    def splits(self, C: int):
+        """The key splits the kernel runs against a C-row ring (bf16), or
+        None (fp32)."""
+        return _chain_splits(self.cfg, self.B, self.M + C, self.device)
 
-    def run_steps(self, n: int, g, plain: bool = False):
+    def run(self, n: int, g, plain: bool = False, splits=None):
+        """K4 (or its plain version, with the bf16 kernel's ``splits``) over
+        n tokens: (ids, one-hots, staged)."""
+        if plain:
+            return self.ops.fused_decode_chunk_plain(
+                self.stacked, self.cfg, self.kv, self.R, self.ids, g,
+                self.count, n, splits)
+        return self.ops.fused_decode_chunk(self.stacked, self.cfg, self.kv,
+                                           self.R, self.ids, g, self.count, n)
+
+    def run_steps(self, n: int, g, plain: bool = False, splits=None):
         """K5 (or its plain version) token by token over a 32-row ring."""
-        fn = (self.ops.fused_decode_step_plain if plain
-              else self.ops.fused_decode_step)
         L, _, H, B, _, dh = self.kv.shape
         staged = torch.zeros((L, 2, H, B, max(n, 32), dh), dtype=self.kv.dtype,
                              device=self.device)
         ids, ohs = self.ids, []
         for t in range(n):
-            ids, oh, staged = fn(self.stacked, self.cfg, self.kv, self.R,
-                                 staged, ids, g[t], t, self.count)
+            if plain:
+                ids, oh, staged = self.ops.fused_decode_step_plain(
+                    self.stacked, self.cfg, self.kv, self.R, staged, ids, g[t],
+                    t, self.count, splits)
+            else:
+                ids, oh, staged = self.ops.fused_decode_step(
+                    self.stacked, self.cfg, self.kv, self.R, staged, ids, g[t],
+                    t, self.count)
             ohs.append(oh)
         return ids, torch.stack(ohs), staged[..., :n, :]
 
@@ -462,7 +503,8 @@ def check_decode(dtype: str, B: int, count: int, chunks=(32, 27),
                  step: bool = False, **kw) -> dict:
     """K4 (or, with ``step``, K5) against its plain version: the GAN's
     chunks of 32 and 27 tokens, the second continuing from the kernel's
-    state."""
+    state. bf16 (the split-key chain) is held against the plain version
+    with the kernel's splits and against the unsplit one."""
     case = DecodeCase(dtype, B, count, **kw)
     res = {"kernel": "K5" if step else "K4", "dtype": dtype, "B": B,
            "count": count, "chunks": []}
@@ -474,6 +516,12 @@ def check_decode(dtype: str, B: int, count: int, chunks=(32, 27),
         p_out = run(n, g, plain=True)
         c = {"n": n, "count": case.count, **_compare_samples(dtype, k_out,
                                                              p_out)}
+        if dtype != "float32":
+            S = case.splits(max(n, 32) if step else n)
+            split = _compare_samples(dtype, k_out,
+                                     run(n, g, plain=True, splits=S))
+            c.update(splits=S, split_plain=split,
+                     ok=c["ok"] and split["ok"])
         res["chunks"].append(c)
         case.advance(k_out, n)
     res["ok"] = all(c["ok"] for c in res["chunks"])
@@ -810,6 +858,24 @@ def sampler_work(n, B, M, count, L=6, HD=500, DI=1000, V=310, es=2, t0=0):
                          + 6 * HD * _decode_keys(M, count, t)) + 2 * HD * V
                     for t in range(t0, t0 + n))
     return nbytes, flops
+
+
+def sampler_stream_bytes(n, B, M, count, L=6, HD=500, es=2, t0=0):
+    """Bytes a serial decode chain streams from device memory when nothing
+    stays in L2 from one token to the next (K3 at M 4146: the K/V and R
+    rows, 74.6 MB a token, exceed the 50 MB L2): every token reads the K/V
+    rows of its keys on each lane and the position rows of its keys once.
+    K3's second floor beside ``sampler_work``'s bound, which counts the big
+    cache once a call."""
+    return sum(es * L * HD * (2 * B + 1) * _decode_keys(M, count, t)
+               for t in range(t0, t0 + n))
+
+
+def chain_launches_per_token(L: int, splits: int) -> int:
+    """Kernel launches a token of the bf16 decode chain makes
+    (csrc/decode_chain_tc.cuh): qkv, attention, [combine], o, FF1, FF2 a
+    layer, then the logits GEMV and the sampling epilogue."""
+    return L * (6 if splits > 1 else 5) + 2
 
 
 def chain_work(n, B, M, count, recompute, L=6, HD=500, DI=1000, V=310, H=10,

@@ -18,6 +18,10 @@ and the chunk's staged K/V rows go out, in the XL memory's h-major layout
 On a CUDA tensor a wrapper launches its kernel chain or raises; on a CPU
 tensor it runs its plain version, which is also what the card holds the
 kernels against. The gumbel noise ``g`` is an input (``models/gan.gumbel``).
+bf16 runs the split-key, lane-tiled chain of ``csrc/decode_chain_tc.cuh``
+and fp32 the reference chain, as for the generation sampler; the plain
+versions take the bf16 kernel's ``splits``
+(``ops/generate.decode_attention_plain``).
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ import torch
 
 from .. import _native
 from ..models.attention import layer_norm
-from .generate import _STACKED, _STACKED_F32, GenArgs
+from .generate import (_STACKED, _STACKED_F32, GenArgs, _layer_keys,
+                       chain_lib, chain_tc_operands, decode_attention_plain)
 
 MAX_CHUNK = 32
 
@@ -70,6 +75,8 @@ def _launch(entry: str, stacked, cfg, kv, R, staged, ids, g, count: int,
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{entry}: {name} must be a contiguous float32 "
                              f"tensor on {dev}")
+    tc, _keep = (chain_tc_operands(stacked, R, B, H, M, C, dev)
+                 if cd == torch.bfloat16 else ({}, []))
     g = g.to(device=dev, dtype=torch.float32).contiguous()
     ids_io = ids.reshape(B).to(device=dev, dtype=torch.int32).clone()
     onehot = torch.empty((n, B, V), dtype=torch.float32, device=dev)
@@ -97,13 +104,14 @@ def _launch(entry: str, stacked, cfg, kv, R, staged, ids, g, count: int,
         emb=p(stacked["emb_scaled"]), emb_t=p(stacked["emb_t"]),
         crit_bias=p(stacked["crit_bias"]), g=p(g), ids=p(ids_io), er=None,
         tokens=None, staged=p(staged), logits_out=None, onehot=p(onehot),
-        **{k: p(v) for k, v in bufs.items()})
-    lib = _native.lib()
-    if ctypes.sizeof(GenArgs) != lib.tg_sizeof_gen_args():
-        raise RuntimeError("GenArgs layout differs from csrc/decode_chain.cuh")
+        **{k: p(v) for k, v in bufs.items()},
+        **tc)
+    lib = chain_lib()
     rc = getattr(lib, "tg_" + entry)(ctypes.byref(args), _native.stream_ptr(dev))
     _native.check(rc, entry)
     _native.count_launch(entry)
+    if cd == torch.bfloat16:
+        _native.count_launch(entry + "_tc")
     return ids_io, onehot
 
 
@@ -139,12 +147,12 @@ def fused_decode_step(stacked, cfg, kv, R, staged, ids, g, t: int, count: int):
 
 @torch.no_grad()
 def fused_decode_step_plain(stacked, cfg, kv, R, staged, ids, g, t: int,
-                            count: int):
+                            count: int, splits: int | None = None):
     """Plain PyTorch version of :func:`fused_decode_step` on the same
-    operands, rounding where the kernel rounds."""
+    operands, rounding where the kernel rounds (the bf16 chain with the
+    kernel's ``splits``)."""
     L, _, H, B, M, dh = kv.shape
-    HD = H * dh
-    cd, dev = kv.dtype, kv.device
+    dev = kv.device
     scale = 1.0 / (dh ** 0.5)
     jlo = min(M, max(M - int(count), t))
     # unmasked keys: big slots jlo..M-1, staged slots 0..t; R rows by
@@ -163,13 +171,9 @@ def fused_decode_step_plain(stacked, cfg, kv, R, staged, ids, g, t: int,
             staged[l, i, :, :, t] = (w_in @ w).view(B, H, dh).transpose(0, 1)
         qw = (q + stacked["rwb"]).view(B, H, dh)
         qr = (q + stacked["rrb"]).view(B, H, dh)
-        keys, vals = (torch.cat([kv[l, i, :, :, jlo:],
-                                 staged[l, i, :, :, :t + 1]], dim=2)
-                      for i in (0, 1))                            # [H, B, nk, dh]
-        ac = torch.einsum("hbkd,bhd->bhk", keys, qw)
-        bd = torch.einsum("khd,bhd->bhk", R[l][rows].view(nk, H, dh), qr)
-        prob = torch.softmax((ac + bd).float() * scale, dim=-1).to(cd)
-        ctx = torch.einsum("bhk,hbkd->bhd", prob, vals).reshape(B, HD)
+        keys, vals = _layer_keys(kv[l], staged[l], jlo, t)
+        ctx = decode_attention_plain(keys, vals, R[l][rows].view(nk, H, dh),
+                                     qw, qr, scale, splits)
         attn = ctx @ stacked["o_w"][l]
         if cfg.pre_lnorm:
             out = x + attn
@@ -189,7 +193,8 @@ def fused_decode_step_plain(stacked, cfg, kv, R, staged, ids, g, t: int,
     return tok.to(torch.int32).view(B, 1), onehot, staged
 
 
-def fused_decode_chunk_plain(stacked, cfg, kv, R, ids, g, count: int, n: int):
+def fused_decode_chunk_plain(stacked, cfg, kv, R, ids, g, count: int, n: int,
+                             splits: int | None = None):
     """Plain PyTorch version of :func:`fused_decode_chunk`: the plain step
     over the chunk."""
     L, _, H, B, _, dh = kv.shape
@@ -197,6 +202,6 @@ def fused_decode_chunk_plain(stacked, cfg, kv, R, ids, g, count: int, n: int):
     onehots = []
     for t in range(n):
         ids, oh, staged = fused_decode_step_plain(stacked, cfg, kv, R, staged,
-                                                  ids, g[t], t, count)
+                                                  ids, g[t], t, count, splits)
         onehots.append(oh)
     return ids, torch.stack(onehots), staged

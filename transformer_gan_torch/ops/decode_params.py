@@ -6,12 +6,45 @@ compute type, with the qkv projection split into q/k/v. LayerNorm scales
 and biases stay fp32, as the plain decode step applies the fp32 master
 weights. The TPU layout's block-diagonal head mask is gone: the kernel
 takes per-head dot products.
+
+In bf16 the dict also holds the operands of the bf16 decode chain
+(``csrc/decode_chain_tc.cuh``): each product's weight transposed, W^T
+``[..., npad(N), kpad(K)]`` with zeros past N and K (``kpad`` a multiple of
+``K_ALIGN``, ``npad`` of ``N_ALIGN``), so a GEMV block reads 16 bytes of 8
+consecutive k of one column; q, k and v are one ``qkv_t`` for their shared
+launch. The plain versions do not read them.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.xl import XLConfig, layer_params
+
+
+# W^T padding of the bf16 chain's operands, as csrc/decode_chain_tc.cuh's
+# kKAlign and kGemvN fix it (ops/generate.chain_lib checks them against the
+# library): K to a multiple of 32 (one 16-byte load feeds two MMA k-steps of
+# 16), N to a multiple of 8 (a GEMV block's columns)
+K_ALIGN = 32
+N_ALIGN = 8
+
+
+def kpad(k: int) -> int:
+    """K of a bf16 chain operand, a multiple of ``K_ALIGN``."""
+    return -(-k // K_ALIGN) * K_ALIGN
+
+
+def npad(n: int) -> int:
+    """N of a bf16 chain operand, a multiple of ``N_ALIGN``."""
+    return -(-n // N_ALIGN) * N_ALIGN
+
+
+def transpose_padded(w: torch.Tensor) -> torch.Tensor:
+    """``[..., K, N]`` -> W^T ``[..., npad(N), kpad(K)]``, zeros in the
+    padding."""
+    K, N = w.shape[-2:]
+    return torch.nn.functional.pad(w.transpose(-1, -2),
+                                   (0, kpad(K) - K, 0, npad(N) - N)).contiguous()
 
 
 def stack_decode_params(params: dict, cfg: XLConfig) -> dict[str, torch.Tensor]:
@@ -26,7 +59,7 @@ def stack_decode_params(params: dict, cfg: XLConfig) -> dict[str, torch.Tensor]:
         return torch.stack(ws).contiguous()
 
     emb = params["word_emb"].to(cd)
-    return {
+    out = {
         "q_w": st("qkv_w", 0),
         "k_w": st("qkv_w", 1),
         "v_w": st("qkv_w", 2),
@@ -46,3 +79,11 @@ def stack_decode_params(params: dict, cfg: XLConfig) -> dict[str, torch.Tensor]:
         "emb_t": params.get("crit_w", params["word_emb"]).to(cd).T.contiguous(),
         "crit_bias": params["crit_bias"].to(cd).contiguous(),
     }
+    if cd == torch.bfloat16:
+        out.update(
+            qkv_t=transpose_padded(torch.cat([out["q_w"], out["k_w"],
+                                              out["v_w"]], dim=-1)),
+            o_t=transpose_padded(out["o_w"]), ff1_t=transpose_padded(out["ff1"]),
+            ff2_t=transpose_padded(out["ff2"]),
+            lg_t=transpose_padded(out["emb_t"]))
+    return out

@@ -10,6 +10,14 @@ chunk loop converts no layout. On a CUDA tensor it launches the kernel
 chain or raises; on a CPU tensor it runs :func:`fused_generate_chunk_plain`,
 which is also what the card checks the kernel against.
 
+fp32 runs the chain of ``csrc/decode_chain.cuh``, the exact on-card
+reference. bf16 runs ``csrc/decode_chain_tc.cuh``: decode attention with
+the keys split across blocks (:func:`decode_key_splits`) and merged in split
+order, and GEMVs that read each weight once for all lanes, from the W^T
+copies ``stack_decode_params`` adds in bf16. Its plain counterpart is
+:func:`fused_generate_chunk_plain` with ``splits``, which rounds where the
+split kernel rounds (:func:`decode_attention_plain`).
+
 The gumbel noise ``g [n, B, V]`` is an input: the caller draws it (from an
 explicit ``torch.Generator``), so both versions, and the JAX package, can
 be fed the same numbers.
@@ -22,10 +30,159 @@ import torch
 
 from .. import _native
 from ..models.attention import layer_norm
+from .attention import combine_splits_plain
+from .decode_params import K_ALIGN, N_ALIGN
 
 MAX_CHUNK = 32
 MAX_LANES = 32
 TECHNIQUES = {"topk": 0, "random": 1, "gumbel": 2}
+
+# bf16 decode attention splits each token's keys across blocks when H x B
+# would leave the card under-filled (enough (h, b, split) blocks for about
+# two waves, at least MIN_SPLIT_KEYS keys a split) and so that a split fits
+# one KEY_TILE-key shared tile; the combine takes up to MAX_DECODE_SPLITS
+# (kKeyTile and kMaxSplits of csrc/decode_chain_tc.cuh: chain_lib checks
+# them against the library)
+MIN_SPLIT_KEYS = 64
+KEY_TILE = 256
+MAX_DECODE_SPLITS = 64
+# the bf16 chain's W^T operands (ops/decode_params.stack_decode_params)
+_STACKED_TC = ("qkv_t", "o_t", "ff1_t", "ff2_t", "lg_t")
+
+
+def decode_key_splits(H: int, B: int, n_keys: int, n_sm: int) -> int:
+    """Key splits of the bf16 decode attention for ``H`` heads, ``B`` lanes
+    and up to ``n_keys`` keys a token on a card of ``n_sm`` streaming
+    multiprocessors (1: each block takes every key of its (h, b))."""
+    blocks = H * B
+    fill = (1 if blocks >= 2 * n_sm
+            else min(-(-2 * n_sm // blocks), n_keys // MIN_SPLIT_KEYS))
+    return max(1, min(max(fill, -(-n_keys // KEY_TILE)), MAX_DECODE_SPLITS))
+
+
+def split_bounds(n_keys: int, splits: int) -> list[tuple[int, int]]:
+    """(first key, keys) of each split of a token's ``n_keys`` keys: the
+    ranges ``torch.tensor_split`` cuts and ``split_attn_kernel`` takes
+    (``lo = s * (n // S) + min(s, n % S)``)."""
+    base, rem = divmod(n_keys, splits)
+    return [(s * base + min(s, rem), base + (1 if s < rem else 0))
+            for s in range(splits)]
+
+
+def r_heads_major(R: torch.Tensor, n_head: int) -> torch.Tensor:
+    """R [L, M+1, HD] -> [L, H, M+1, dh]: each head's position rows one run
+    of bytes, as the bf16 decode attention copies them."""
+    L, rows, HD = R.shape
+    return R.view(L, rows, n_head, HD // n_head).permute(0, 2, 1, 3).contiguous()
+
+
+def chain_key_splits(H: int, B: int, n_keys: int, device) -> int:
+    """:func:`decode_key_splits` on ``device``'s card."""
+    return decode_key_splits(H, B, n_keys, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
+def chain_lib() -> ctypes.CDLL:
+    """The kernel library, checked against this side of the decode chain's
+    contract: the ``GenArgs`` layout, and the bf16 chain's W^T padding, key
+    tile and split cap as ``csrc/decode_chain_tc.cuh`` fixes them
+    (``tg_decode_chain_layout``)."""
+    lib = _native.lib()
+    if ctypes.sizeof(GenArgs) != lib.tg_sizeof_gen_args():
+        raise RuntimeError("GenArgs layout differs from csrc/decode_chain.cuh")
+    got = (ctypes.c_int * 4)()
+    lib.tg_decode_chain_layout(got)
+    want = (K_ALIGN, N_ALIGN, KEY_TILE, MAX_DECODE_SPLITS)
+    if tuple(got) != want:
+        raise RuntimeError(
+            f"bf16 decode chain layout (K align, N align, key tile, max "
+            f"splits): library {tuple(got)}, Python {want}")
+    return lib
+
+
+def chain_design(dtype) -> str:
+    """Which decode chain a dtype runs on the card."""
+    if dtype == torch.bfloat16:
+        return ("bf16 chain (decode_chain_tc.cuh): split-key decode attention "
+                "with a fixed-order combine, lane-tiled mma.sync GEMVs with "
+                "LayerNorm prologues and residual epilogues, 5 launches a "
+                "layer (6 with split keys) + 2 a token")
+    return "fp32 chain (decode_chain.cuh), the exact on-card reference"
+
+
+def decode_attention_plain(keys, vals, r_rows, qw, qr, scale: float,
+                           splits: int | None = None) -> torch.Tensor:
+    """One token's attention over its unmasked keys: keys, vals
+    [H, B, nk, dh]; r_rows [nk, H, dh] (the position rows by distance); qw,
+    qr [B, H, dh] (q + r_w_bias, q + r_r_bias). Returns ctx [B, H * dh] in
+    the compute type.
+
+    ``splits`` None rounds the probabilities (softmax over all keys) to the
+    compute type before P V. With ``splits`` S the keys are cut into the S
+    ranges of :func:`split_bounds`, each keeping its own max
+    m_s, p = exp(s - m_s) rounded before P V and l_s = sum p unrounded,
+    merged by :func:`combine_splits_plain` and rounded once: what the bf16
+    kernel does (an empty range adds nothing)."""
+    H, B, nk, dh = keys.shape
+    cd = keys.dtype
+    ac = torch.einsum("hbkd,bhd->bhk", keys, qw)
+    bd = torch.einsum("khd,bhd->bhk", r_rows, qr)
+    s = (ac + bd).float() * scale
+    if splits is None:
+        prob = torch.softmax(s, dim=-1).to(cd)
+        return torch.einsum("bhk,hbkd->bhd", prob, vals).reshape(B, H * dh)
+    vf = vals.float()
+    parts = []
+    for lo, n in split_bounds(nk, splits):
+        if n == 0:
+            parts.append((s.new_zeros((B, H, dh)),
+                          s.new_full((B, H), float("-inf")), s.new_zeros((B, H))))
+            continue
+        ss = s[..., lo:lo + n]
+        m_s = ss.amax(-1)
+        p = torch.exp(ss - m_s[..., None])
+        o_s = torch.einsum("bhk,hbkd->bhd", p.to(cd).float(),
+                           vf[:, :, lo:lo + n])
+        parts.append((o_s, m_s, p.sum(-1)))
+    o, _, _ = combine_splits_plain(*(torch.stack(x) for x in zip(*parts)))
+    return o.to(cd).reshape(B, H * dh)
+
+
+def _layer_keys(kv_l, staged_l, jlo: int, t: int):
+    """The unmasked keys and values of a token at chunk step ``t``:
+    [H, B, nk, dh] each, big slots jlo..M-1 then staged slots 0..t."""
+    return (torch.cat([kv_l[i, :, :, jlo:], staged_l[i, :, :, :t + 1]], dim=2)
+            for i in (0, 1))
+
+
+def chain_tc_operands(stacked, R, B: int, H: int, M: int, C: int,
+                      device) -> tuple[dict, list]:
+    """The bf16 chain's fields of :class:`GenArgs` for a call on ``device``
+    with ``B`` lanes, an ``M``-slot cache and a ``C``-row ring: the key
+    splits, the W^T operands, R with each head's rows contiguous
+    (``R_h [L, H, M+1, dh]``, so a split's position rows are one run of
+    bytes) and the split scratch; and the tensors the fields point into,
+    which the caller keeps until the launch."""
+    dh = R.shape[2] // H
+    if dh % 2 or dh > 64:
+        raise ValueError(f"bf16 decode chain: d_head must be even and <= 64, "
+                         f"got {dh}")
+    for name in _STACKED_TC:
+        if name not in stacked:
+            raise ValueError(f"bf16 chain: stacked has no {name} "
+                             "(stack_decode_params builds it in bf16)")
+    splits = chain_key_splits(H, B, M + C, device)
+    HD = R.shape[2]
+    R_h = r_heads_major(R, H)
+    keep = [R_h]
+    fields = {"splits": splits, "R_h": R_h.data_ptr()}
+    if splits > 1:
+        opart = torch.empty((splits, B, HD), dtype=torch.float32, device=device)
+        ml = torch.empty((splits, B, H, 2), dtype=torch.float32, device=device)
+        keep += [opart, ml]
+        fields.update(opart=opart.data_ptr(), ml=ml.data_ptr())
+    fields.update({k: _native.ptr(stacked[k]) for k in _STACKED_TC})
+    return fields, keep
 
 
 def supports_fused_generate(cfg, scfg, bsz: int, C: int) -> bool:
@@ -46,14 +203,15 @@ class GenArgs(ctypes.Structure):
         [(k, ctypes.c_int) for k in (
             "dtype", "n", "L", "B", "M", "HD", "DI", "H", "V", "pre_lnorm",
             "same_length", "technique", "topk", "exclude_bos", "num_empty",
-            "empty_token", "count", "t0", "C")]
+            "empty_token", "count", "t0", "C", "splits")]
         + [("scale", ctypes.c_float), ("temperature", ctypes.c_float)]
         + [(k, ctypes.c_void_p) for k in (
             "kv", "R", "q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2",
             "fb2", "ln_as", "ln_ab", "ln_fs", "ln_fb", "rwb", "rrb", "emb",
             "emb_t", "crit_bias", "g", "ids", "er", "tokens", "staged",
             "logits_out", "x", "w_in", "q", "ctx", "attn", "out", "hid", "ff",
-            "logits", "onehot")])
+            "logits", "onehot", "qkv_t", "o_t", "ff1_t", "ff2_t", "lg_t",
+            "opart", "ml", "R_h")])
 
 
 _STACKED = {"q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2", "fb2", "rwb",
@@ -100,6 +258,8 @@ def fused_generate_chunk(stacked, cfg, scfg, kv, R, ids, er, g, count,
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"fused_generate_chunk: {name} must be a "
                              f"contiguous float32 tensor on {dev}")
+    tc, _keep = (chain_tc_operands(stacked, R, B, H, M, n, dev)
+                 if cd == torch.bfloat16 else ({}, []))
     g = g.to(device=dev, dtype=torch.float32).contiguous()
     ids_io = ids.reshape(B).to(device=dev, dtype=torch.int32).clone()
     er_io = er.reshape(B).to(device=dev, dtype=torch.int32).clone()
@@ -134,13 +294,14 @@ def fused_generate_chunk(stacked, cfg, scfg, kv, R, ids, er, g, count,
         emb_t=p(stacked["emb_t"]), crit_bias=p(stacked["crit_bias"]),
         g=p(g), ids=p(ids_io), er=p(er_io), tokens=p(tokens),
         staged=p(staged), logits_out=p(logits_out),
-        **{k: p(v) for k, v in bufs.items()})
-    lib = _native.lib()
-    if ctypes.sizeof(GenArgs) != lib.tg_sizeof_gen_args():
-        raise RuntimeError("GenArgs layout differs from csrc/decode_chain.cuh")
+        **{k: p(v) for k, v in bufs.items()},
+        **tc)
+    lib = chain_lib()
     rc = lib.tg_generate_chunk(ctypes.byref(args), _native.stream_ptr(dev))
     _native.check(rc, "generate_chunk")
     _native.count_launch("generate_chunk")
+    if cd == torch.bfloat16:
+        _native.count_launch("generate_chunk_tc")
     out = (ids_io.view(B, 1), er_io.view(B, 1), tokens, staged)
     return out + (logits_out,) if return_logits else out
 
@@ -148,13 +309,15 @@ def fused_generate_chunk(stacked, cfg, scfg, kv, R, ids, er, g, count,
 @torch.no_grad()
 def fused_generate_chunk_plain(stacked, cfg, scfg, kv, R, ids, er, g,
                                count, n: int, same_length: bool = True,
-                               return_logits: bool = False):
+                               return_logits: bool = False,
+                               splits: int | None = None):
     """Plain PyTorch version of :func:`fused_generate_chunk` on the same
-    operands, rounding where the kernel rounds."""
+    operands, rounding where the kernel rounds: the fp32 chain with
+    ``splits`` None, the bf16 chain with the kernel's ``splits``
+    (:func:`decode_attention_plain`)."""
     from ..infer.sample import _filter_and_sample
 
     L, _, H, B, M, dh = kv.shape
-    HD = H * dh
     cd, dev = kv.dtype, kv.device
     scale = 1.0 / (dh ** 0.5)
     sl = 1 if same_length else 0
@@ -180,14 +343,10 @@ def fused_generate_chunk_plain(stacked, cfg, scfg, kv, R, ids, er, g,
                 staged[l, i, :, :, t] = (w_in @ w).view(B, H, dh).transpose(0, 1)
             qw = (q + stacked["rwb"]).view(B, H, dh)
             qr = (q + stacked["rrb"]).view(B, H, dh)
-            # [H, B, nk, dh]
-            keys, vals = (torch.cat([kv[l, i, :, :, jlo:],
-                                     staged[l, i, :, :, :t + 1]], dim=2)
-                          for i in (0, 1))
-            ac = torch.einsum("hbkd,bhd->bhk", keys, qw)
-            bd = torch.einsum("khd,bhd->bhk", R[l][rows].view(nk, H, dh), qr)
-            prob = torch.softmax((ac + bd).float() * scale, dim=-1).to(cd)
-            ctx = torch.einsum("bhk,hbkd->bhd", prob, vals).reshape(B, HD)
+            keys, vals = _layer_keys(kv[l], staged[l], jlo, t)
+            ctx = decode_attention_plain(keys, vals,
+                                         R[l][rows].view(nk, H, dh), qw, qr,
+                                         scale, splits)
             attn = ctx @ stacked["o_w"][l]
             if cfg.pre_lnorm:
                 out = x + attn

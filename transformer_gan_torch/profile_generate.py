@@ -1,14 +1,33 @@
-"""Device-time breakdown of the generation kernels on one CUDA card.
+"""Device-time breakdown of the decode-chain kernels on one CUDA card.
 
-    python -m transformer_gan_torch.profile_generate [--lanes 1 8] [--mem 4146]
+    python -m transformer_gan_torch.profile_generate [--lanes 1 8] [--mem 4146] [--ablate]
 
-For each lane count, one 32-token chunk of the fused sampling kernel chain
-(K3) at the baseline model's full width in bf16 on a full ring is traced
-with ``torch.profiler``; the script prints each CUDA kernel's launches and
-device milliseconds, their total, the chunk's wall time from CUDA events and
-the device's busy share. Then the plain version of the XL attention forward
-(K1f) at q 128, B 1 is broken down the same way. Weights and cache are
-seeded random; their values do not change the work done.
+One 32-token call of each fused sampler at the baseline model's full width
+in bf16 on a full ring is traced with ``torch.profiler``: the generation
+sampler (K3) for each lane count at M ``--mem``, and the GAN's gumbel
+sampler (K4) at its op-point, B 64, M 64. The script prints each CUDA
+kernel's launches and device milliseconds, their total, and from that one
+traced call: the busy time (the union of the kernels' device intervals:
+the bf16 chain's kernels overlap under programmatic dependent launch, so
+their summed device time can exceed it), the span from the first kernel's
+start to the last one's end, the call's time from CUDA events recorded
+around it inside the trace, the busy share of the span (the gaps between
+kernels) and of the call (the host's set-up before the first kernel
+included), and the kernel launches a token (every launch of the traced
+call over its 32 tokens, the wrapper's few per-call kernels included). The
+untraced call's time (CUDA events) is printed beside them. Then the plain
+version of the XL attention forward (K1f) at q 128, B 1 is broken down the
+same way.
+
+``--ablate`` rebuilds the kernel library from an edited copy of ``csrc/``
+(under ``build/profile_generate/``; the sources are not touched) with the
+LayerNorm taken out of the bf16 GEMVs' prologue (the rows are copied and
+multiplied unnormalized), and times K3 and K4 at the op-points above
+against the unedited sources built the same way (CUDA events): the edited
+results are wrong, only the times mean something. What the removal saves
+is an upper bound on what the LayerNorm prologue costs.
+Weights and cache are seeded random; their values do not change the work
+done.
 """
 from __future__ import annotations
 
@@ -22,6 +41,15 @@ from . import kernel_check as kc
 
 # host-side ops and copies that the trace also lists with a device time
 _NOT_KERNELS = ("aten::", "Activity Buffer", "Memcpy", "Memset")
+N_TOKENS = 32
+
+# part of the bf16 chain's GEMVs taken out -> (file, text, replacement)
+# edits of the sources (``--ablate``)
+ABLATIONS = {
+    "layernorm prologue": [("decode_chain_tc.cuh",
+                            "  if (in.ln_s != nullptr) {\n    const float2* sc2",
+                            "  if (false) {\n    const float2* sc2")],
+}
 
 
 def _device_rows(prof) -> list:
@@ -33,25 +61,91 @@ def _device_rows(prof) -> list:
     return sorted(rows, key=lambda r: -r[2])
 
 
-def profile_chunk(B: int, M: int, top: int = 12) -> dict:
-    case = kc.GenerateCase("bfloat16", B, M, M=M)
-    g = case.noise(32)
-    case.run(32, g)
+def _busy_ms(prof) -> tuple[float, float]:
+    """(busy, span) in milliseconds: the time in which at least one kernel
+    of the trace ran, and the time from the first kernel's start to the
+    last kernel's end."""
+    spans = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and not any(k in e.name() for k in _NOT_KERNELS))
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6, (end - spans[0][0]) / 1e6
+
+
+def _case(kernel: str, B: int, M: int):
+    return (kc.GenerateCase("bfloat16", B, M, M=M) if kernel == "K3"
+            else kc.DecodeCase("bfloat16", B, M, M=M))
+
+
+def profile_chunk(kernel: str, B: int, M: int, top: int = 12) -> dict:
+    """Trace one bf16 32-token call of K3 (``kernel`` "K3") or K4 ("K4") at
+    B lanes on a full M-slot ring."""
+    case = _case(kernel, B, M)
+    g = case.noise(N_TOKENS)
+
+    def call():
+        return case.run(N_TOKENS, g)
+
+    call()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        case.run(32, g)
+        start.record()
+        call()
+        end.record()
         torch.cuda.synchronize()
+    call_ms = start.elapsed_time(end)
     rows = _device_rows(prof)
     kernels = [r for r in rows if not any(k in r[0] for k in _NOT_KERNELS)]
     total = sum(r[2] for r in kernels)
-    wall = kc.time_ms(lambda: case.run(32, g), iters=3, warmup=1)
-    print(f"K3 B={B} M={M}: device kernel time {total:.3f} ms per 32-token "
-          f"chunk, wall {wall:.3f} ms (CUDA events), device busy "
-          f"{100 * total / wall:.1f}%")
+    launches = sum(r[1] for r in kernels)
+    busy, span = _busy_ms(prof)
+    wall = kc.time_ms(call, iters=3, warmup=1)
+    print(f"{kernel} bf16 B={B} M={M}, one traced {N_TOKENS}-token call: "
+          f"device kernel time {total:.3f} ms, busy {busy:.3f} ms of a "
+          f"{span:.3f} ms kernel span ({100 * busy / span:.1f}%) and of the "
+          f"{call_ms:.3f} ms call ({100 * busy / call_ms:.1f}%), "
+          f"{launches / N_TOKENS:.2f} kernel launches a token; untraced "
+          f"call {wall:.3f} ms (CUDA events)")
     for key, count, ms in kernels[:top]:
         print(f"  {key[:60]:60s} launches {count:6d} {ms:9.3f} ms")
-    return {"B": B, "M": M, "device_ms": total, "wall_ms": wall}
+    return {"kernel": kernel, "B": B, "M": M, "device_ms": total,
+            "busy_ms": busy, "span_ms": span, "traced_call_ms": call_ms,
+            "busy_share": busy / span, "busy_share_call": busy / call_ms,
+            "untraced_call_ms": wall, "launches_per_token": launches / N_TOKENS}
+
+
+def ablate(lanes: list[int], mem: int) -> None:
+    """Times K3 (each lane count, M ``mem``) and K4 (B 64, M 64) with each
+    part of ``ABLATIONS`` taken out, after the unedited sources built the
+    same way."""
+    from . import _native
+    from .profile_attention import build_variant
+
+    root, csrc = _native.BUILD_DIR.parent / "profile_generate", _native.CSRC
+    points = [("K3", B, mem) for B in lanes] + [("K4", 64, kc.GAN_MEM)]
+    for part, edits in {"nothing": [], **ABLATIONS}.items():
+        build_variant(edits, root / part.replace(" ", "_"), csrc)
+        times = []
+        for kernel, B, M in points:
+            case = _case(kernel, B, M)
+            g = case.noise(N_TOKENS)
+            ms = kc.time_ms(lambda: case.run(N_TOKENS, g), iters=5, warmup=1)
+            times.append(f"{kernel} B {B} {ms:.4f} ms")
+            del case
+        print(f"without {part:18s} " + "  ".join(times))
+        torch.cuda.empty_cache()
 
 
 def profile_attention_plain(M: int, top: int = 8) -> None:
@@ -70,6 +164,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--lanes", type=int, nargs="+", default=[1, 8])
     parser.add_argument("--mem", type=int, default=kc.MEM_LEN)
+    parser.add_argument("--ablate", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -79,8 +174,11 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     for B in args.lanes:
-        profile_chunk(B, args.mem)
+        profile_chunk("K3", B, args.mem)
+    profile_chunk("K4", 64, kc.GAN_MEM)
     profile_attention_plain(args.mem)
+    if args.ablate:
+        ablate(args.lanes, args.mem)
 
 
 if __name__ == "__main__":
