@@ -19,7 +19,9 @@ Phases, one line each; any failure exits non-zero:
    gumbel sampler (K4, K5) and its reverse chain (K6, K7) at M 64; bf16 K3,
    K4 and K5 run the split-key, lane-tiled decode chain
    (csrc/decode_chain_tc.cuh) and are held against the plain versions with
-   the kernel's key splits and without (the phase prints the splits);
+   the kernel's key splits and without (the phase prints the splits); bf16
+   K6 and K7 run the reverse chain of csrc/chain_bwd_tc.cu on the same
+   GEMV engine (post-norm, and one pre-norm case);
 4. main path, generation: ``transformer_gan_torch.cli.generate.main`` on
    seeded full-width bf16 parameters, unconditional (8 lanes) and
    conditional with the debug incremental == batch memory check, with
@@ -36,7 +38,8 @@ Phases, one line each; any failure exits non-zero:
 6. main path, GAN: ``transformer_gan_torch.cli.train`` on
    experiment_cnn.yml (batch 64, warm start from the training run) with a
    dis and a gen phase at steps 1 and 2 and a restart (K4, K6), a second run
-   on the per-token sampler and the recomputing chain (K5, K7), and one
+   on the per-token sampler and the recomputing chain (K5, K7), both chains
+   on the bf16 reverse chain (its "_tc" counters), and one
    fp32 dis and gen update of the kernel path on the card against the plain
    path on the CPU;
 7. numbers: us/token and events/s for generation, training tokens/s, the
@@ -55,7 +58,10 @@ Phases, one line each; any failure exits non-zero:
    reference, at the same shapes; K3's streaming floor beside its bound;
    one K3 and one K4 call traced (torch.profiler) for the kernel launches
    a token and the device-busy share (the union of the kernels' intervals
-   over their span and over the traced call).
+   over their span and over the traced call). The reverse chain: bf16 K6
+   and K7 (n 59, B 64, M 64) beside the fp32 chain, the on-card reference,
+   K6's streaming floor beside its bound, one K6 and one K7 call traced
+   (profile_chain) for launches a token and the busy share.
 
 The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -176,6 +182,13 @@ def main() -> None:
               6, gen_ops.chain_key_splits(10, B, M + 32, dev))
               for B, M in decode_points})
     dec_errs = check_decode(kc)
+    from transformer_gan_torch.ops import chain_bwd as chain_ops
+    phase("kernels.reverse_chain",
+          design={str(d).split(".")[-1]: chain_ops.chain_design(d)
+                  for d in (torch.float32, torch.bfloat16)},
+          launches_per_token_by_design={
+              "K6": kc.chain_bwd_launches_per_token(6, False),
+              "K7": kc.chain_bwd_launches_per_token(6, True)})
     chain_errs = check_chain(kc)
     torch.cuda.synchronize()
 
@@ -282,6 +295,19 @@ def main() -> None:
               "transformer_gan_tpu/ops/pallas_chain_bwd.py:103",
               "chain_bwd_recompute", *worst([chain_errs["K7"]]),
               numbers["K7"]),
+        # K6 / K7: every call enters chain_bwd.cu, which runs fp32 on its
+        # CUDA-core chain and sends bf16 to chain_bwd_tc.cu; the two entries
+        # above time the bf16 calls (as in earlier runs) and carry the fp32
+        # chain's times ("fp32_" keys), these the same bf16 calls
+        entry("chain_bwd_res_tc (K6, bf16 reverse chain)", "chain_bwd_tc.cu",
+              "transformer_gan_tpu/ops/pallas_chain_bwd.py:301",
+              "chain_bwd_res_tc", *(worst([chain_errs["K6"]])[1],) * 2,
+              numbers["K6_tc"]),
+        entry("chain_bwd_recompute_tc (K7, bf16 reverse chain)",
+              "chain_bwd_tc.cu",
+              "transformer_gan_tpu/ops/pallas_chain_bwd.py:103",
+              "chain_bwd_recompute_tc", *(worst([chain_errs["K7"]])[1],) * 2,
+              numbers["K7_tc"]),
         entry("xl_attn_fwd_v2_tc (K1f, bf16 on the tensor cores)",
               "attention_v2_tc.cu",
               "transformer_gan_tpu/ops/pallas_attention_v2.py:111",
@@ -1060,20 +1086,19 @@ def check_decode(kc) -> dict:
 
 def check_chain(kc) -> dict:
     """K6 and K7 against the plain chain at full width: n 59, M 64, fp32
-    and bf16, B 8 and 64, count 0 and 64, T 1.0 and 0.5."""
+    and bf16, B 8 and 64, count 0 and 64, T 1.0 and 0.5; and bf16 pre-norm
+    at B 64, an odd count, T 0.7."""
     errs = {"K6": {}, "K7": {}}
-    for dtype in ("float32", "bfloat16"):
-        for B in (8, 64):
-            for count in (0, kc.GAN_MEM):
-                for T in (1.0, 0.5):
-                    res = kc.check_chain(dtype, B, count, T)
-                    phase("kernels.chain_bwd", **res)
-                    if not res["ok"]:
-                        fail(f"chain backward kernel disagrees: {res}")
-                    for key in ("K6", "K7"):
-                        errs[key][dtype] = max(errs[key].get(dtype, 0.0),
-                                               res[key])
-                    torch.cuda.empty_cache()
+    cases = [(dtype, B, count, T, False) for dtype in ("float32", "bfloat16")
+             for B in (8, 64) for count in (0, kc.GAN_MEM) for T in (1.0, 0.5)]
+    for dtype, B, count, T, pre in cases + [("bfloat16", 64, 37, 0.7, True)]:
+        res = kc.check_chain(dtype, B, count, T, pre_lnorm=pre)
+        phase("kernels.chain_bwd", **res)
+        if not res["ok"]:
+            fail(f"chain backward kernel disagrees: {res}")
+        for key in ("K6", "K7"):
+            errs[key][dtype] = max(errs[key].get(dtype, 0.0), res[key])
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -1108,11 +1133,13 @@ def run_gan_path(_native, mle_run: str) -> dict:
     runs = {}
     for name, tpu, env, need in (
             ("chunk_res", {}, None, ("decode_chunk", "decode_chunk_tc",
-                                     "chain_bwd_res", "xl_attn_fwd_v2",
-                                     "xl_attn_bwd_v2", "xl_attn_fwd_v2_tc",
+                                     "chain_bwd_res", "chain_bwd_res_tc",
+                                     "xl_attn_fwd_v2", "xl_attn_bwd_v2",
+                                     "xl_attn_fwd_v2_tc",
                                      "xl_attn_bwd_v2_tc")),
             ("step_recompute", {"gan_chain_bwd": "kernel_recompute"}, "0",
-             ("decode_step", "decode_step_tc", "chain_bwd_recompute"))):
+             ("decode_step", "decode_step_tc", "chain_bwd_recompute",
+              "chain_bwd_recompute_tc"))):
         cfg = _train_cfg_file(work, f"{name}.yml", "experiment_cnn.yml",
                               **GAN_OVERRIDES, load_from_previous=warm,
                               DISCRIMINATOR=disc, TPU=tpu)
@@ -1176,7 +1203,8 @@ def measure_gan(kc, card: str) -> dict:
     phase (5 updates) and the gen phase in ms, and sampled tokens/s, of the
     kernel path against the plain path (the sampler and chain plain
     versions on the card) in turns; then each of K4, K5, K6 and K7 per
-    launch against its plain version, beside its bound."""
+    launch against its plain version, beside its bound, in bf16 and fp32,
+    and one K6 and one K7 call traced (profile_chain)."""
     from transformer_gan_torch.models import gan as gan_mod
     res = {}
     cases = {r: kc.GanCase("bfloat16", B_GAN, "cuda", route=r, dis_steps=5,
@@ -1261,20 +1289,45 @@ def measure_gan(kc, card: str) -> dict:
                                  for k in ("ms", "plain_ms", "bound_ms",
                                            "shape")})
         del case, staged
-    chain = kc.ChainCase("bfloat16", B_GAN, kc.GAN_MEM)
-    for key, variant, recompute in (("K6", "res", False),
-                                    ("K7", "recompute", True)):
-        ms, plain_ms = kc.time_in_turns(lambda: chain.run(variant),
-                                        lambda: chain.run("plain"), 2)
-        bound, by = kc.bound_ms(*kc.chain_work(chain.n, B_GAN, kc.GAN_MEM,
-                                               kc.GAN_MEM, recompute))
-        res[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": by, "library_ms": None,
-                    "library_call": "none computes the straight-through "
-                    "chain's backward", "shape": f"n {chain.n}, B {B_GAN}, "
-                    f"M {kc.GAN_MEM}, count {kc.GAN_MEM}, bf16"}
+    # K6 and K7 on the bf16 reverse chain (the entries of both names) and
+    # on the fp32 chain, the on-card reference (the "fp32_" keys)
+    from transformer_gan_torch import profile_chain
+    for dtype, es in (("bfloat16", 2), ("float32", 4)):
+        chain = kc.ChainCase(dtype, B_GAN, kc.GAN_MEM)
+        for key, variant, recompute in (("K6", "res", False),
+                                        ("K7", "recompute", True)):
+            ms, plain_ms = kc.time_in_turns(lambda: chain.run(variant),
+                                            lambda: chain.run("plain"), 2)
+            bound, by = kc.bound_ms(*kc.chain_work(
+                chain.n, B_GAN, kc.GAN_MEM, kc.GAN_MEM, recompute, es=es),
+                dtype)
+            shape = (f"n {chain.n}, B {B_GAN}, M {kc.GAN_MEM}, count "
+                     f"{kc.GAN_MEM}, {dtype}")
+            if dtype == "float32":
+                res[key].update(fp32_ms=ms, fp32_plain_ms=plain_ms,
+                                fp32_bound_ms=bound, fp32_shape=shape)
+                continue
+            trace = profile_chain.profile_call(variant, chain)
+            res[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "library_ms": None,
+                        "library_call": "none computes the straight-through "
+                        "chain's backward", "shape": shape,
+                        "launches_per_token_traced":
+                            trace["launches_per_token"],
+                        "busy_share_traced": trace["busy_share"],
+                        "busy_share_call_traced": trace["busy_share_call"]}
+        del chain
+        torch.cuda.empty_cache()
+    for key in ("K6", "K7"):
+        res[key + "_tc"] = {k: v for k, v in res[key].items()
+                            if not k.startswith("fp32_")}
     phase("numbers.gan_kernels", card=card,
           **{k: res[k] for k in ("K4", "K5", "K6", "K7")})
+    # worked out, not measured (so a phase line carries it, the kernels line
+    # only what this run measured): K6's streaming floor, each token
+    # rereading its K/V lanes (50 MB at count M, more than L2)
+    phase("numbers.reverse_chain_floor", stream_floor_ms=kc.chain_stream_bytes(
+        59, B_GAN, kc.GAN_MEM, kc.GAN_MEM) / kc.PEAK_BYTES * 1e3)
     return res
 
 

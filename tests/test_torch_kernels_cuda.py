@@ -14,7 +14,9 @@ keys; the GAN sampler (K4, K5) and reverse chain (K6, K7) at M 64, B 8, 24 and 6
 with an odd count; the bf16 decode chain of K3 / K4 / K5 (split-key decode
 attention, lane-tiled GEMVs) at B 1, 3 and 8 with M 4146 and ragged M, at
 the GAN op-point and narrower lane tiles, K5 at step 5, determinism and its
-launch counters."""
+launch counters; the bf16 reverse chain of K6 / K7 (csrc/chain_bwd_tc.cu)
+at B 72, 64, 40, 8 and 5, n 59 and 27, full and odd counts, post- and pre-norm,
+determinism and its launch counters."""
 
 import pytest
 import torch
@@ -374,3 +376,44 @@ def test_bf16_chain_counts_launches(cuda):
     assert _native.LAUNCHES["generate_chunk_tc"] == 1
     assert _native.LAUNCHES["decode_chunk"] == _native.LAUNCHES["decode_chunk_tc"] == 1
     assert _native.LAUNCHES["decode_step"] == _native.LAUNCHES["decode_step_tc"] == 3
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7 in bf16 on the reverse chain of csrc/chain_bwd_tc.cu: lane-tiled
+# GEMVs with the LayerNorm backwards in their prologues; held against the
+# plain chain within CHAIN_REL_TOL_BF16 x max|Q_ref| (kernel_check.check_chain)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,n,count,T,pre", [
+    (64, 59, kc.GAN_MEM, 1.0, False),  # the op-point
+    (64, 59, 37, 0.7, False),          # odd count: the window's left edge moves
+    (8, 27, 0, 1.0, False),            # empty memory
+    (5, 27, 37, 0.7, False),           # one narrow lane tile
+    (40, 59, kc.GAN_MEM, 1.0, False),  # three m-tiles
+    (72, 27, 37, 1.0, False),          # two lane tiles, the second of 8
+    (64, 27, 37, 1.0, True),           # pre-LN
+    (5, 59, kc.GAN_MEM, 0.7, True),
+])
+def test_bf16_reverse_chain_matches_plain(cuda, B, n, count, T, pre):
+    res = kc.check_chain("bfloat16", B, count, T, n=n, pre_lnorm=pre)
+    assert res["ok"], res
+
+
+def test_bf16_reverse_chain_is_deterministic(cuda):
+    """Fixed-order sums, no atomics: two calls give bitwise-equal Q."""
+    chain = kc.ChainCase("bfloat16", 64, kc.GAN_MEM)
+    for variant in ("res", "recompute"):
+        assert torch.equal(chain.run(variant), chain.run(variant)), variant
+
+
+def test_bf16_reverse_chain_counts_launches(cuda):
+    """The _tc counters move for bf16 only; the plain names count both."""
+    _native.reset_launches()
+    for dtype in ("float32", "bfloat16"):
+        chain = kc.ChainCase(dtype, 8, 10, n=4)
+        chain.run("res")
+        chain.run("recompute")
+    assert _native.LAUNCHES["chain_bwd_res"] == 2
+    assert _native.LAUNCHES["chain_bwd_recompute"] == 2
+    assert _native.LAUNCHES["chain_bwd_res_tc"] == 1
+    assert _native.LAUNCHES["chain_bwd_recompute_tc"] == 1

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches since the last reset_launches()
 # (the "_tc" entries count the bf16 calls, a subset of the calls of the
 # plain names: K1f / K1b / K2f / K2b on the tensor-core kernels, K3 / K4 /
-# K5 on the bf16 decode chain of csrc/decode_chain_tc.cuh)
+# K5 on the bf16 decode chain of csrc/decode_chain_tc.cuh, K6 / K7 on the
+# bf16 reverse chain of csrc/chain_bwd_tc.cu)
 LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
                             "xl_attn_bwd_v2": 0, "xl_attn_bwd_v1": 0,
                             "xl_attn_fwd_v2_tc": 0, "xl_attn_bwd_v2_tc": 0,
@@ -42,7 +43,9 @@ LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
                             "generate_chunk": 0, "decode_chunk": 0,
                             "decode_step": 0, "generate_chunk_tc": 0,
                             "decode_chunk_tc": 0, "decode_step_tc": 0,
-                            "chain_bwd_res": 0, "chain_bwd_recompute": 0}
+                            "chain_bwd_res": 0, "chain_bwd_recompute": 0,
+                            "chain_bwd_res_tc": 0,
+                            "chain_bwd_recompute_tc": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -153,6 +156,11 @@ def lib() -> ctypes.CDLL:
             for name in ("tg_decode_chunk", "tg_decode_step", "tg_chain_bwd"):
                 getattr(handle, name).argtypes = [vp, vp]
                 getattr(handle, name).restype = i32
+            # absent from a library of sources older than the bf16 reverse
+            # chain (profile_chain --engine-against loads one)
+            if hasattr(handle, "tg_chain_bwd_layout"):
+                handle.tg_chain_bwd_layout.argtypes = [vp]
+                handle.tg_chain_bwd_layout.restype = None
             handle.tg_sizeof_chain_args.argtypes = []
             handle.tg_sizeof_chain_args.restype = i32
             _lib = handle

@@ -34,9 +34,12 @@
 // HD values) and does ~2 B multiply-adds per weight: operations and bytes
 // about equally at B 64 (0.12 and 0.11 ms a 59-token chunk), in practice the
 // latency of ~13 small launches per token and layer and GEMVs that read the
-// weights once per lane.
+// weights once per lane. This chain (run_chain_bwd) runs fp32 only, the exact
+// on-card reference; bf16 runs the lane-tiled tensor-core chain of
+// chain_bwd_tc.cu (run_chain_bwd_tc).
 // Rounding follows the plain version's compute type: each product's inputs are
 // rounded to T, sums and cotangents stay fp32.
+#include "chain_args.cuh"
 #include "decode_chain.cuh"
 
 namespace {
@@ -299,62 +302,6 @@ chain_attn_bwd_kernel(const float* __restrict__ prob, long long prob_bh,
 
 }  // namespace
 
-// Operands of one chunk. T is the compute type (dtype 0 float32, 1 bfloat16)
-// unless marked float or int. Residuals (res_*) are [L, n_res, B, .] with
-// n_res = n (K6, the window pass's) or 1 (K7, this call's recomputation,
-// written here); res_prob is [L, B, H, n_res, KL] fp32.
-struct ChainArgs {
-  int dtype, n, L, B, M, HD, DI, H, V, pre_lnorm, count, recompute;
-  float scale, temperature;
-  const void* kf;     // [L, H, B, KL, dh] lane buffers, KL = M + n
-  const void* vf;
-  const void* R;      // [L, M + 1, HD], row r = distance M - r
-  const void* q_w;    // [L, HD, HD]
-  const void* k_w;
-  const void* v_w;
-  const void* o_w;
-  const void* ff1;    // [L, HD, DI]
-  const void* fb1;    // [L, DI]
-  const void* ff2;    // [L, DI, HD]
-  const void* fb2;    // [L, HD]
-  const float* ln_as; // [L, HD] float
-  const float* ln_ab;
-  const float* ln_fs;
-  const float* ln_fb;
-  const void* rwb;    // [HD]
-  const void* rrb;
-  const void* emb;    // [V, HD], pre-scaled by sqrt(d_model)
-  const void* emb_t;  // [HD, V]
-  const float* S;     // [n, B, V] straight-through cotangents
-  const float* Y;     // [n, B, V] softmax outputs
-  const int* ids;     // [n, B] input ids (K7)
-  void* res_x;        // [L, n_res, B, HD] layer inputs
-  void* res_z1;       // x + attn
-  void* res_z2;       // h1 + ff
-  void* res_ff;       // [L, n_res, B, DI] ff_pre
-  float* res_prob;    // [L, B, H, n_res, KL]
-  float* Q;           // [n, B, V] out
-  float* chi;         // float scratch [B, V], [B, HD] x 4, [B, DI], [B, HD] x 5
-  float* dx;
-  float* dz2;
-  float* dz1;
-  float* dff;         // [B, DI]
-  float* dffin;
-  float* dctx;
-  float* dq;
-  float* dk;
-  float* dv;
-  float* dwin;
-  void* q;            // T scratch [B, HD] x 2 (+ K7: [B, HD] x 4, [B, DI])
-  void* w_in;
-  void* x;
-  void* ctx;
-  void* attn;
-  void* out;
-  void* hid;          // [B, DI]
-  void* ff;
-};
-
 template <typename T>
 static int run_chain_bwd(const ChainArgs& a, cudaStream_t st) {
   const int L = a.L, B = a.B, M = a.M, HD = a.HD, DI = a.DI, H = a.H, V = a.V, n = a.n;
@@ -544,7 +491,7 @@ extern "C" int tg_chain_bwd(const ChainArgs* a, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (a->dtype == 0) return run_chain_bwd<float>(*a, st);
-  if (a->dtype == 1) return run_chain_bwd<__nv_bfloat16>(*a, st);
+  if (a->dtype == 1) return run_chain_bwd_tc(*a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

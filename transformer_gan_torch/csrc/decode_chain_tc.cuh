@@ -50,6 +50,10 @@
 //   weights, LayerNorm parameters and big-cache rows in flight while the
 //   kernel before it finishes.
 //
+// The GEMV kernel takes its prologue and epilogue from a policy (GemvIo
+// here); the bf16 reverse chain (chain_bwd_tc.cu, K6 / K7) runs the same
+// kernel with its own (fp32 row ops in, fp32 or bf16 products out).
+//
 // Rounding follows the plain versions (ops/generate.py, ops/decode.py with
 // `splits`): fp32 accumulation, rounded to bf16 after each product, on the
 // residual sums and on the logits; LayerNorm in fp32, its output rounded;
@@ -234,6 +238,46 @@ __device__ void gemv_prologue(const GemvIn& in, bf16* xs, int ks, int b0, int nb
   }
 }
 
+// The forward chain's GEMV policy (K3, K4, K5): input rows by gemv_prologue,
+// products stored by GemvOut. tc_gemv_kernel takes its prologue and
+// epilogue from a policy like this one; the reverse chain (chain_bwd_tc.cu)
+// brings its own.
+struct GemvIo {
+  using In = GemvIn;
+  using Out = GemvOut;
+  // the input's LayerNorm parameters, loaded before the wait (by value: a
+  // reference to the kernel's parameter moves the forward kernels' preamble)
+  __device__ static __forceinline__ const float* ln_s(const GemvIn& in) { return in.ln_s; }
+  __device__ static __forceinline__ const float* ln_b(const GemvIn& in) { return in.ln_b; }
+  __device__ static __forceinline__ void prologue(const GemvIn& in, bf16* xs, int ks, int b0,
+                                                  int nb, int K, const float* lnw, int warps) {
+    gemv_prologue(in, xs, ks, b0, nb, K, lnw, warps);
+  }
+  // the product s of lane b and column n
+  __device__ static __forceinline__ void store(const GemvOut& out, int b, int n, int, float s) {
+    float y = rnd<bf16>(s);
+    if (out.bias != nullptr) y = rnd<bf16>(y + __bfloat162float(out.bias[n]));
+    if (out.relu) y = fmaxf(y, 0.f);
+    if (out.res != nullptr) y = rnd<bf16>(__bfloat162float(out.res[b * out.res_stride + n]) + y);
+    // constant indices keep the parameter arrays out of local memory; a
+    // division only where a part scatters heads
+    const int p = n < out.part_n ? 0 : (n < 2 * out.part_n ? 1 : 2);
+    const int cn = n - p * out.part_n;
+    bf16* dst = p == 0 ? out.out[0] : (p == 1 ? out.out[1] : out.out[2]);
+    const long long ostr =
+        p == 0 ? out.out_stride[0] : (p == 1 ? out.out_stride[1] : out.out_stride[2]);
+    const int seg = p == 0 ? out.seg[0] : (p == 1 ? out.seg[1] : out.seg[2]);
+    long long idx = b * ostr + cn;
+    if (seg != out.part_n) {
+      const long long sstr =
+          p == 0 ? out.seg_stride[0] : (p == 1 ? out.seg_stride[1] : out.seg_stride[2]);
+      const int hh = cn / seg;
+      idx += hh * (sstr - seg);
+    }
+    dst[idx] = __float2bfloat16_rn(y);
+  }
+};
+
 // out[b, n] for the 8 columns n0 .. n0+7 of block x and the lanes of block y:
 // the lanes' rows [MT*16, K] (shared) times W^T rows n0 .. n0+7 [8, kpad(K)].
 // Each of the WARPS warps takes every WARPS-th k-step of 32; a thread loads
@@ -242,9 +286,10 @@ __device__ void gemv_prologue(const GemvIn& in, bf16* xs, int ks, int b0, int nb
 // (slot 2t+j <- k 8t+j, slot 2t+8+j <- k 8t+2+j; then +4), which leaves the
 // product unchanged. The warps add their partials in warp order. Wide lane
 // tiles take 16 warps, so that a warp normalizes 4 of the 64 lane rows.
-template <int MT, int WARPS>
+template <int MT, int WARPS, class Io = GemvIo>
 __global__ void __launch_bounds__(WARPS * 32)
-tc_gemv_kernel(GemvIn in, const bf16* __restrict__ Wt, int K, int N, GemvOut out, int B) {
+tc_gemv_kernel(typename Io::In in, const bf16* __restrict__ Wt, int K, int N,
+               typename Io::Out out, int B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int rows = MT * 16;
   const int Kp = kpad(K), ks = Kp + 32;  // +64 bytes: the two rows of a phase on other banks
@@ -271,10 +316,10 @@ tc_gemv_kernel(GemvIn in, const bf16* __restrict__ Wt, int K, int N, GemvOut out
     }
   };
   load_w(warp);
-  if (in.ln_s != nullptr)
+  if (Io::ln_s(in) != nullptr)
     for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      tc::cp_async4(lnw + k, in.ln_s + k, true);
-      tc::cp_async4(lnw + K + k, in.ln_b + k, true);
+      tc::cp_async4(lnw + k, Io::ln_s(in) + k, true);
+      tc::cp_async4(lnw + K + k, Io::ln_b(in) + k, true);
     }
   const bf16 zero = __float2bfloat16_rn(0.f);
   for (int r = warp; r < rows; r += WARPS)
@@ -282,7 +327,7 @@ tc_gemv_kernel(GemvIn in, const bf16* __restrict__ Wt, int K, int N, GemvOut out
 
   pdl_wait();
   pdl_trigger();
-  gemv_prologue(in, xs, ks, b0, nb, K, lnw, WARPS);
+  Io::prologue(in, xs, ks, b0, nb, K, lnw, WARPS);
   __syncthreads();
 
   float acc[MT][4];
@@ -322,27 +367,7 @@ tc_gemv_kernel(GemvIn in, const bf16* __restrict__ Wt, int K, int N, GemvOut out
     const int r = mt * 16 + (ln >> 2) + (j >= 2 ? 8 : 0);
     const int n = n0 + 2 * (ln & 3) + (j & 1);
     if (r >= nb || n >= N) continue;
-    const int b = b0 + r;
-    float y = rnd<bf16>(s);
-    if (out.bias != nullptr) y = rnd<bf16>(y + __bfloat162float(out.bias[n]));
-    if (out.relu) y = fmaxf(y, 0.f);
-    if (out.res != nullptr) y = rnd<bf16>(__bfloat162float(out.res[b * out.res_stride + n]) + y);
-    // constant indices keep the parameter arrays out of local memory; a
-    // division only where a part scatters heads
-    const int p = n < out.part_n ? 0 : (n < 2 * out.part_n ? 1 : 2);
-    const int cn = n - p * out.part_n;
-    bf16* dst = p == 0 ? out.out[0] : (p == 1 ? out.out[1] : out.out[2]);
-    const long long ostr =
-        p == 0 ? out.out_stride[0] : (p == 1 ? out.out_stride[1] : out.out_stride[2]);
-    const int seg = p == 0 ? out.seg[0] : (p == 1 ? out.seg[1] : out.seg[2]);
-    long long idx = b * ostr + cn;
-    if (seg != out.part_n) {
-      const long long sstr =
-          p == 0 ? out.seg_stride[0] : (p == 1 ? out.seg_stride[1] : out.seg_stride[2]);
-      const int hh = cn / seg;
-      idx += hh * (sstr - seg);
-    }
-    dst[idx] = __float2bfloat16_rn(y);
+    Io::store(out, b0 + r, n, N, s);
   }
 }
 

@@ -560,10 +560,12 @@ class ChainCase:
 
     def __init__(self, dtype: str, B: int, count: int, T: float = 1.0,
                  n: int = 59, M: int = GAN_MEM, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", pre_lnorm: bool = False):
+        import dataclasses
         from .ops import chain_bwd as chain_ops
         self.ops = chain_ops
-        self.cfg = cfg = baseline_config(dtype)
+        self.cfg = cfg = dataclasses.replace(baseline_config(dtype),
+                                             pre_lnorm=pre_lnorm)
         cd, V = cfg.cdtype, cfg.n_token
         self.params = {k: v.to(device) for k, v in xl.init_xl_params(
             cfg, seed, base_init=("normal", 0.02)).items()}
@@ -582,6 +584,8 @@ class ChainCase:
         self.Y = torch.softmax((logits.float() + g) / T, dim=-1)
         self.S = torch.randn((n, B, V), generator=gen, device=device)
         self.stacked = stack_decode_params(self.params, cfg)
+        self.R = xl.precompute_r_heads(self.params, cfg, M + 1, device).reshape(
+            cfg.n_layer, M + 1, cfg.n_head * cfg.d_head).to(cd).contiguous()
         self.count, self.T, self.n, self.B, self.M = count, T, n, B, M
 
     def args(self):
@@ -592,9 +596,10 @@ class ChainCase:
         """"res" (K6), "recompute" (K7) or "plain"."""
         if variant == "res":
             return self.ops.chain_bwd_q_res(*self.args(), self.res,
-                                            stacked=self.stacked)
+                                            stacked=self.stacked, R=self.R)
         if variant == "recompute":
-            return self.ops.chain_bwd_q(*self.args(), stacked=self.stacked)
+            return self.ops.chain_bwd_q(*self.args(), stacked=self.stacked,
+                                        R=self.R)
         return self.ops.chain_bwd_q_plain(*self.args())
 
 
@@ -611,7 +616,8 @@ def check_chain(dtype: str, B: int, count: int, T: float = 1.0, **kw) -> dict:
     kink_next = torch.cat([ff[1:], torch.full_like(ff[:1], math.inf)])
     ref = case.run("plain")
     f32 = dtype == "float32"
-    res = {"dtype": dtype, "B": B, "count": count, "T": T, "n": case.n}
+    res = {"dtype": dtype, "B": B, "count": count, "T": T, "n": case.n,
+           "pre_lnorm": case.cfg.pre_lnorm}
     if f32:
         f64 = dataclasses.replace(case.cfg, compute_dtype="float64",
                                   softmax_dtype="float64")
@@ -876,6 +882,24 @@ def chain_launches_per_token(L: int, splits: int) -> int:
     (csrc/decode_chain_tc.cuh): qkv, attention, [combine], o, FF1, FF2 a
     layer, then the logits GEMV and the sampling epilogue."""
     return L * (6 if splits > 1 else 5) + 2
+
+
+def chain_bwd_launches_per_token(L: int, recompute: bool) -> int:
+    """Kernel launches a token t >= 1 of the bf16 reverse chain makes
+    (csrc/chain_bwd_tc.cu): ff2^T, ff1^T, o^T, attention backward, qkv^T
+    and the 2 LayerNorm-backward row kernels a layer, the head and emb^T
+    products; K7 adds the forward's q, attention, o, FF1 and FF2 a layer."""
+    return L * (12 if recompute else 7) + 2
+
+
+def chain_stream_bytes(n, B, M, count, L=6, HD=500, es=2):
+    """Bytes the reverse chain streams from device memory when no K/V lane
+    stays in L2 from one token to the next: every token t >= 1 rereads the
+    K and V rows of the lanes it sees in every layer (at count M, B 64: 50
+    MB a token; the lane buffers, 94 MB, exceed the 50 MB L2). K6's second
+    floor beside ``chain_work``'s bound, which counts the lanes once."""
+    return sum(es * L * 2 * B * HD * (M + t - min(M, max(M - count, t)) + 1)
+               for t in range(1, n))
 
 
 def chain_work(n, B, M, count, recompute, L=6, HD=500, DI=1000, V=310, H=10,

@@ -74,13 +74,15 @@ def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
     except query i's own lane ``mem_len + i``, which stays live, so the
     gradient reaches each token's K/V once; the position term is live on
     every lane. ``with_prob`` appends the detached fp32 probabilities
-    [bsz, n_head, qlen, klen] (exact zeros on masked lanes).
+    [bsz, n_head, qlen, klen] (exact zeros on masked lanes) and the detached
+    queries w @ q_w [qlen, bsz, n_head*d_head] (before the biases).
     """
     qlen, bsz = w.shape[0], w.shape[1]
     klen = k_mem.shape[2] + qlen
     scale = 1.0 / (d_head ** 0.5)
 
     q, k_cur, v_cur = (w @ qkv_w).chunk(3, dim=-1)
+    q_rows = q
     # attention-ready [b, h, t, d]
     q = q.reshape(qlen, bsz, n_head, d_head).permute(1, 2, 0, 3)
     k_cur = k_cur.reshape(qlen, bsz, n_head, d_head).permute(1, 2, 0, 3)
@@ -126,5 +128,5 @@ def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
     attn_vec = ctx.permute(2, 0, 1, 3).reshape(qlen, bsz, n_head * d_head)
     out = (attn_vec, k_cur.transpose(0, 1), v_cur.transpose(0, 1))
     if with_prob:
-        out = out + (prob.detach().to(torch.float32),)
+        out = out + (prob.detach().to(torch.float32), q_rows.detach())
     return out

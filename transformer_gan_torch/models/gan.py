@@ -269,11 +269,14 @@ def gen_scan_chunked_fused(stacked, xcfg: xl.XLConfig, kv: torch.Tensor,
 
 
 def _sample_fake_chunks_fused(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
-                              data: torch.Tensor, noise, mems=None):
-    """Forward-only :func:`sample_fake_chunks` on the fused sampler."""
+                              data: torch.Tensor, noise, mems=None,
+                              operands=None):
+    """Forward-only :func:`sample_fake_chunks` on the fused sampler
+    (``operands``: :func:`_sampler_operands` of ``mems``, built when not
+    given)."""
     if mems is None:
         mems = prime_context(gen_params, xcfg, gcfg, data)
-    stacked, kv, R = _sampler_operands(gen_params, xcfg, mems)
+    stacked, kv, R = operands or _sampler_operands(gen_params, xcfg, mems)
     V, ctx, L_s = gcfg.n_token, gcfg.context_len, gcfg.sample_len
     count = mems.count
     ids = data[ctx - 1].to(torch.int32)[:, None]
@@ -314,13 +317,14 @@ class _ChunkSTFullchain(torch.autograd.Function):
     grad_outputs = Q."""
 
     @staticmethod
-    def forward(ctx, xcfg, chain_impl, names, inputs, k_mem, v_mem, count, g,
-                hard, temperature, *flat_params):
+    def forward(ctx, xcfg, chain_impl, names, chain_operands, inputs, k_mem,
+                v_mem, count, g, hard, temperature, *flat_params):
         params = dict(zip(names, flat_params))
         st, y, kf, vf, _ = _window_st(params, xcfg, inputs, k_mem, v_mem,
                                       count, g, hard, temperature)
         kf, vf = torch.stack(kf), torch.stack(vf)
         ctx.xcfg, ctx.chain_impl, ctx.names = xcfg, chain_impl, names
+        ctx.chain_operands = chain_operands
         ctx.count, ctx.temperature = count, temperature
         ctx.save_for_backward(inputs, k_mem, v_mem, g, hard, y, *flat_params)
         ctx.mark_non_differentiable(kf, vf)
@@ -340,16 +344,19 @@ class _ChunkSTFullchain(torch.autograd.Function):
             logits, kf, vf = out[0], torch.stack(out[1]), torch.stack(out[2])
             args = (params, xcfg, kf, vf, inputs, dst, y, ctx.count,
                     ctx.temperature)
+            # the sampler's stacked weights and R: a gen update stacks once
+            stacked, R = ctx.chain_operands
             if impl == "jnp":
                 Q = chain_ops.chain_bwd_q_plain(*args)
             elif impl == "kernel_recompute":
-                Q = chain_ops.chain_bwd_q(*args)
+                Q = chain_ops.chain_bwd_q(*args, stacked=stacked, R=R)
             else:
-                Q = chain_ops.chain_bwd_q_res(*args, out[4])
+                Q = chain_ops.chain_bwd_q_res(*args, out[4], stacked=stacked,
+                                              R=R)
             grads = torch.autograd.grad(logits, leaves,
                                         grad_outputs=Q.to(logits.dtype),
                                         allow_unused=True)
-        return (None,) * 10 + tuple(torch.zeros_like(p) if g is None else g
+        return (None,) * 11 + tuple(torch.zeros_like(p) if g is None else g
                                     for p, g in zip(leaves, grads))
 
 
@@ -362,8 +369,10 @@ def _sample_fake_chunks_recompute(gen_params, xcfg: xl.XLConfig,
     terms through :class:`_ChunkSTFullchain` otherwise)."""
     V, ctx, M = gcfg.n_token, gcfg.context_len, gcfg.mem_len
     mems = prime_context(gen_params, xcfg, gcfg, data)
+    operands = _sampler_operands(gen_params, xcfg, mems)
     hard_chunks = _sample_fake_chunks_fused(gen_params, xcfg, gcfg, data,
-                                            noise, mems=mems)
+                                            noise, mems=mems,
+                                            operands=operands)
     k_mem = mems.hids[:, 0].to(xcfg.cdtype)          # [L, h, b, M, dh]
     v_mem = mems.hids[:, 1].to(xcfg.cdtype)
     count = mems.count
@@ -380,8 +389,9 @@ def _sample_fake_chunks_recompute(gen_params, xcfg: xl.XLConfig,
             kf, vf = torch.stack(kf), torch.stack(vf)
         else:
             st, kf, vf = _ChunkSTFullchain.apply(
-                xcfg, chain_impl, names, inputs, k_mem, v_mem, count, g,
-                hard, float(temperature), *gen_params.values())
+                xcfg, chain_impl, names, (operands[0], operands[2]), inputs,
+                k_mem, v_mem, count, g, hard, float(temperature),
+                *gen_params.values())
         count = min(count + hard.shape[0], M)
         k_mem, v_mem = kf[..., -M:, :], vf[..., -M:, :]
         if c == 0:

@@ -554,7 +554,9 @@ def decode_recompute_window(params, cfg: XLConfig, inp: torch.Tensor, k_mem,
     buffers [n_head, bsz, M + n, d_head] = [mem || window K/V] (detached).
     ``collect_residuals`` appends a dict of detached activations for the
     chain backward: x / z1 / z2 [L, n, bsz, hd], ff_pre [L, n, bsz, d_inner],
-    prob [L, bsz, n_head, n, M + n] fp32."""
+    prob [L, bsz, n_head, n, M + n] fp32, q [L, n, bsz, hd] (w_in @ q_w, the
+    queries before the biases, which the bf16 chain takes off its serial
+    path)."""
     n, bsz, _ = inp.shape
     h, dh = cfg.n_head, cfg.d_head
     M = k_mem[0].shape[2]
@@ -574,7 +576,7 @@ def decode_recompute_window(params, cfg: XLConfig, inp: torch.Tensor, k_mem,
     r_r_bias = params["r_r_bias"].to(cd)
 
     new_k, new_v = [], []
-    res = {k: [] for k in ("x", "z1", "z2", "ff_pre", "prob")}
+    res = {k: [] for k in ("x", "z1", "z2", "ff_pre", "prob", "q")}
     for i in range(cfg.n_layer):
         layer = layer_params(params, i)
         if cfg.pre_lnorm:
@@ -598,7 +600,8 @@ def decode_recompute_window(params, cfg: XLConfig, inp: torch.Tensor, k_mem,
         z2 = out + torch.relu(ff_pre) @ layer["ff_w2"].to(cd) + layer["ff_b2"].to(cd)
         if collect_residuals:
             for key, val in (("x", x), ("z1", z1), ("z2", z2),
-                             ("ff_pre", ff_pre), ("prob", attn[3])):
+                             ("ff_pre", ff_pre), ("prob", attn[3]),
+                             ("q", attn[4])):
                 res[key].append(val.detach())
         if cfg.pre_lnorm:
             x = z2

@@ -12,7 +12,10 @@ In bf16 the dict also holds the operands of the bf16 decode chain
 ``[..., npad(N), kpad(K)]`` with zeros past N and K (``kpad`` a multiple of
 ``K_ALIGN``, ``npad`` of ``N_ALIGN``), so a GEMV block reads 16 bytes of 8
 consecutive k of one column; q, k and v are one ``qkv_t`` for their shared
-launch. The plain versions do not read them.
+launch. The plain versions do not read them. They also hold the operands of
+the bf16 reverse chain (``csrc/chain_bwd_tc.cu``, :func:`chain_bwd_operands`):
+a backward product out[b, n] = sum_k x[b, k] W[n, k] takes the forward
+weight as stored, padded alike to ``[..., npad(N), kpad(K)]``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,27 @@ def transpose_padded(w: torch.Tensor) -> torch.Tensor:
     K, N = w.shape[-2:]
     return torch.nn.functional.pad(w.transpose(-1, -2),
                                    (0, kpad(K) - K, 0, npad(N) - N)).contiguous()
+
+
+def pad_operand(w: torch.Tensor) -> torch.Tensor:
+    """``[..., N, K]`` -> ``[..., npad(N), kpad(K)]``, zeros in the padding."""
+    N, K = w.shape[-2:]
+    return torch.nn.functional.pad(w, (0, kpad(K) - K, 0, npad(N) - N)).contiguous()
+
+
+def chain_bwd_operands(stacked: dict) -> dict[str, torch.Tensor]:
+    """The bf16 reverse chain's weights from :func:`stack_decode_params`'s
+    stack: each backward product's forward weight as stored, padded
+    (:func:`pad_operand`). ``qkv_bwd`` takes [dq | dk | dv] in one product."""
+    return {
+        "qkv_bwd": pad_operand(torch.cat([stacked["q_w"], stacked["k_w"],
+                                          stacked["v_w"]], dim=-1)),
+        "o_bwd": pad_operand(stacked["o_w"]),
+        "ff1_bwd": pad_operand(stacked["ff1"]),
+        "ff2_bwd": pad_operand(stacked["ff2"]),
+        "emb_t_bwd": pad_operand(stacked["emb_t"]),
+        "emb_bwd": pad_operand(stacked["emb_scaled"]),
+    }
 
 
 def stack_decode_params(params: dict, cfg: XLConfig) -> dict[str, torch.Tensor]:
@@ -86,4 +110,5 @@ def stack_decode_params(params: dict, cfg: XLConfig) -> dict[str, torch.Tensor]:
             o_t=transpose_padded(out["o_w"]), ff1_t=transpose_padded(out["ff1"]),
             ff2_t=transpose_padded(out["ff2"]),
             lg_t=transpose_padded(out["emb_t"]))
+        out.update(chain_bwd_operands(out))
     return out
