@@ -76,6 +76,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GEN_LENGTH = 4096
+START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -84,7 +85,10 @@ def fail(msg: str) -> None:
 
 
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}, default=str), flush=True)
+    """One JSON line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": name,
+                      "t_s": round(time.perf_counter() - START, 1), **fields},
+                     default=str), flush=True)
 
 
 def card_line() -> str:
@@ -190,6 +194,7 @@ def main() -> None:
               "K6": kc.chain_bwd_launches_per_token(6, False),
               "K7": kc.chain_bwd_launches_per_token(6, True)})
     chain_errs = check_chain(kc)
+    span_errs = check_spanbert_shapes(kc)
     torch.cuda.synchronize()
 
     # 4. main path, generation, through the CLI
@@ -213,24 +218,37 @@ def main() -> None:
     if not gan_ref["ok"]:
         fail("kernel path and CPU plain path disagree on the GAN updates")
 
+    # 7. main path, BERT pretraining and the spanbert GAN, through the CLIs
+    bert_ckpt = run_bert_pretrain(_native)
+    span_launches = run_gan_bert_path(_native, mle_run, bert_ckpt)
+    span_ref = kc.check_gan_reference(**spanbert_case(bert_ckpt))
+    phase("main_path.gan_bert_reference", **span_ref)
+    if not span_ref["ok"]:
+        fail("kernel path and CPU plain path disagree on the spanbert GAN "
+             "updates")
+
     # 7. numbers
     numbers = measure(kc, card)
     numbers.update(measure_train(kc, card))
     numbers.update(measure_gan(kc, card))
+    numbers.update(measure_gan_bert(kc, card, bert_ckpt))
+    measure_bert_pretrain(card)
     trace = numbers["traces"]["K4"]
     numbers["K4_tc"].update(
         launches_per_token_traced=trace["launches_per_token"],
         busy_share_traced=trace["busy_share"],
         busy_share_call_traced=trace["busy_share_call"])
     paths = {"generate": summaries["launches"], "train": train_launches,
-             "gan": gan_launches}
+             "gan": gan_launches, "gan_bert": span_launches}
     launches = {k: sum(p[k] for p in paths.values()) for k in _native.LAUNCHES}
     by_path = {k: {n: p[k] for n, p in paths.items()} for k in _native.LAUNCHES}
 
-    def entry(name, source, replaces, key, f32, bf16, num):
+    def entry(name, source, replaces, key, f32, bf16, num, path=None):
+        """``path``: count the launches of that main path alone."""
         e = {"name": name, "route": "cuda",
              "source": f"transformer_gan_torch/csrc/{source}",
-             "replaces": replaces, "launches": launches[key],
+             "replaces": replaces,
+             "launches": launches[key] if path is None else by_path[key][path],
              "launches_by_path": by_path[key], "max_abs_err": f32,
              "max_abs_err_bf16": bf16, "ms": num["ms"],
              "plain_ms": num["plain_ms"], "bound_ms": num["bound_ms"],
@@ -332,6 +350,30 @@ def main() -> None:
               "decode_step_tc", *(worst([dec_errs["K5"]])[1],) * 2,
               numbers["K5_tc"]),
     ]
+    # the spanbert op-point's shapes (B 32, M 128; the MLE step at B 32 a
+    # batch chunk), launches from the spanbert GAN runs alone
+    for name, source, replaces, key, err, num in (
+            ("decode_chunk_tc (K4)", "decode_chain_tc.cuh",
+             "transformer_gan_tpu/ops/pallas_decode.py:359", "decode_chunk_tc",
+             "K4", "span_K4"),
+            ("decode_step_tc (K5)", "decode_chain_tc.cuh",
+             "transformer_gan_tpu/ops/pallas_decode.py:82", "decode_step_tc",
+             "K5", "span_K5"),
+            ("chain_bwd_res_tc (K6)", "chain_bwd_tc.cu",
+             "transformer_gan_tpu/ops/pallas_chain_bwd.py:301",
+             "chain_bwd_res_tc", "K6", "span_K6"),
+            ("chain_bwd_recompute_tc (K7)", "chain_bwd_tc.cu",
+             "transformer_gan_tpu/ops/pallas_chain_bwd.py:103",
+             "chain_bwd_recompute_tc", "K7", "span_K7"),
+            ("xl_attn_fwd_v2_tc (K1f)", "attention_v2_tc.cu",
+             "transformer_gan_tpu/ops/pallas_attention_v2.py:111",
+             "xl_attn_fwd_v2_tc", "fwd_v2", "span_v2"),
+            ("xl_attn_bwd_v2_tc (K1b)", "attention_v2_tc_bwd.cu",
+             "transformer_gan_tpu/ops/pallas_attention_v2.py:166",
+             "xl_attn_bwd_v2_tc", "v2", "span_bwd_v2")):
+        kernels.append(entry(f"{name} at the spanbert op-point", source,
+                             replaces, key, *worst([span_errs[err]]),
+                             numbers[num], path="gan_bert"))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -714,13 +756,22 @@ def write_random_corpus(data_dir: str, vocab_path: str, n_train: int,
 def _train_cfg_file(work: str, name: str, base: str = "experiment_baseline.yml",
                     **groups) -> str:
     """A shipped training config with overrides per group (TRAIN when given
-    as plain keys), written beside the corpus."""
+    as plain keys; nested groups merged key by key), written beside the
+    corpus."""
     import yaml
+
+    def merge(node, over):
+        for k, v in over.items():
+            if isinstance(v, dict):
+                merge(node.setdefault(k, {}), v)
+            else:
+                node[k] = v
+
     with open(os.path.join(ROOT, "training_config", base)) as f:
         cfg = yaml.safe_load(f)
     for key, value in groups.items():
         if isinstance(value, dict):
-            cfg.setdefault(key, {}).update(value)
+            merge(cfg.setdefault(key, {}), value)
         else:
             cfg["TRAIN"][key] = value
     path = os.path.join(work, name)
@@ -1117,32 +1168,37 @@ def _gan_log(run_dir: str) -> list:
                                 r"gen_loss=([-\d.]+), dis_loss=([-\d.]+)", text)]
 
 
-def run_gan_path(_native, mle_run: str) -> dict:
-    """The training CLI on experiment_cnn.yml (batch 64, warm start from the
-    MLE run, dis and gen phases at steps 1 and 2), then --restart for a
-    third (K4, K6); a second run on the per-token sampler and the
-    recomputing chain (K5, K7). Returns the launch counts of the runs."""
+GAN_RUNS = (
+    ("chunk_res", {}, None, ("decode_chunk", "decode_chunk_tc",
+                             "chain_bwd_res", "chain_bwd_res_tc",
+                             "xl_attn_fwd_v2", "xl_attn_bwd_v2",
+                             "xl_attn_fwd_v2_tc", "xl_attn_bwd_v2_tc")),
+    ("step_recompute", {"gan_chain_bwd": "kernel_recompute"}, "0",
+     ("decode_step", "decode_step_tc", "chain_bwd_recompute",
+      "chain_bwd_recompute_tc")))
+
+
+def _gan_cli_runs(_native, label: str, base: str, overrides: dict,
+                  disc: dict, warm: str, check=None) -> tuple[dict, dict]:
+    """The training CLI on config ``base`` with ``overrides`` (TRAIN),
+    ``disc`` (DISCRIMINATOR) and the warm start ``warm``, twice (GAN_RUNS):
+    the chunk sampler and the reverse chain on the residuals (K4, K6), then
+    --restart for one more step; the per-token sampler and the recomputing
+    chain (K5, K7). Each run must launch its kernels, log gen and dis
+    losses and checkpoint the GAN state; ``check(trainer, name)`` adds a
+    run's own checks and returns what it read. Returns (launch counts
+    summed over the runs, the runs' records)."""
     from transformer_gan_torch.cli import train as tcli
     from transformer_gan_torch.train import checkpoint as ckpt
-    work = os.path.join(ROOT, "build", "chip_smoke", "gan")
+    work = os.path.join(ROOT, "build", "chip_smoke", label)
     os.makedirs(work, exist_ok=True)
     data = os.path.join(ROOT, "build", "chip_smoke", "train", "data")
-    warm = os.path.join(mle_run, "checkpoint_last")
-    disc = {"dis_loss_freq": 1, "gen_loss_freq": 1}
     total = dict.fromkeys(_native.LAUNCHES, 0)
     runs = {}
-    for name, tpu, env, need in (
-            ("chunk_res", {}, None, ("decode_chunk", "decode_chunk_tc",
-                                     "chain_bwd_res", "chain_bwd_res_tc",
-                                     "xl_attn_fwd_v2", "xl_attn_bwd_v2",
-                                     "xl_attn_fwd_v2_tc",
-                                     "xl_attn_bwd_v2_tc")),
-            ("step_recompute", {"gan_chain_bwd": "kernel_recompute"}, "0",
-             ("decode_step", "decode_step_tc", "chain_bwd_recompute",
-              "chain_bwd_recompute_tc"))):
-        cfg = _train_cfg_file(work, f"{name}.yml", "experiment_cnn.yml",
-                              **GAN_OVERRIDES, load_from_previous=warm,
-                              DISCRIMINATOR=disc, TPU=tpu)
+    for name, tpu, env, need in GAN_RUNS:
+        cfg = _train_cfg_file(work, f"{name}.yml", base, **overrides,
+                              load_from_previous=warm, DISCRIMINATOR=disc,
+                              TPU=tpu)
         if env is not None:
             os.environ["TGTPU_CHUNK_SAMPLER"] = env
         torch.cuda.synchronize()
@@ -1151,65 +1207,77 @@ def run_gan_path(_native, mle_run: str) -> dict:
         try:
             tr = tcli.main(["--data_dir", data, "--cfg", cfg, "--work_dir",
                             os.path.join(work, name)])
+            torch.cuda.synchronize()
             launches = dict(_native.LAUNCHES)
+            checked = check(tr, name) if check else None
             restart = None
             if name == "chunk_res":
                 counts = (tr.gan.dis_opt_state.count,
                           tr.gan.gen_opt_state.count)
-                cfg4 = _train_cfg_file(work, f"{name}_4.yml",
-                                       "experiment_cnn.yml",
-                                       **{**GAN_OVERRIDES, "max_step": 4},
+                cfg4 = _train_cfg_file(work, f"{name}_4.yml", base,
+                                       **{**overrides, "max_step": 4},
                                        load_from_previous=warm,
                                        DISCRIMINATOR=disc, TPU=tpu)
                 _native.reset_launches()
                 again = tcli.main(["--data_dir", data, "--cfg", cfg4,
                                    "--work_dir", tr.work_dir, "--restart"])
+                torch.cuda.synchronize()
                 restart = {"steps": again.train_step_num,
                            "dis_updates": [counts[0],
                                            again.gan.dis_opt_state.count],
                            "gen_updates": [counts[1],
-                                           again.gan.gen_opt_state.count]}
+                                           again.gan.gen_opt_state.count],
+                           "checked": (check(again, name + " restart")
+                                       if check else None)}
                 if (again.gan.gen_opt_state.count != counts[1] + 1
                         or again.gan.dis_opt_state.count
                         != counts[0] + tr.cfg.DISCRIMINATOR.dis_steps):
-                    fail(f"--restart lost the GAN state: {restart}")
+                    fail(f"--restart lost the {label} GAN state: {restart}")
                 launches = {k: launches[k] + _native.LAUNCHES[k]
                             for k in launches}
         finally:
             os.environ.pop("TGTPU_CHUNK_SAMPLER", None)
-        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         for k in need:
             if launches[k] == 0:
-                fail(f"the GAN run {name} never launched {k}")
+                fail(f"the {label} run {name} never launched {k}")
         log = _gan_log(tr.work_dir)
         if (len(log) < 3 or not all(abs(x["gen_loss"]) > 0 and abs(x["dis_loss"])
                                     > 0 for x in log[1:])):
-            fail(f"the GAN run {name} logged no gen / dis losses: {log}")
+            fail(f"the {label} run {name} logged no gen / dis losses: {log}")
         if ckpt.load_gan_payload(tr.work_dir, "checkpoint_last") is None:
-            fail(f"the GAN run {name} checkpointed no GAN state")
+            fail(f"the {label} run {name} checkpointed no GAN state")
         runs[name] = {"run_dir": os.path.relpath(tr.work_dir, ROOT),
                       "steps": tr.train_step_num, "wall_s": wall,
-                      "launches": launches, "log": log, "restart": restart}
+                      "launches": launches, "log": log,
+                      "dis_updates": tr.gan.dis_opt_state.count,
+                      "gen_updates": tr.gan.gen_opt_state.count,
+                      "checked": checked, "restart": restart}
         for k in total:
             total[k] += launches[k]
+    return total, runs
+
+
+def run_gan_path(_native, mle_run: str) -> dict:
+    """The training CLI on experiment_cnn.yml (batch 64, warm start from the
+    MLE run, dis and gen phases at steps 1 and 2), then --restart for a
+    third (K4, K6); a second run on the per-token sampler and the
+    recomputing chain (K5, K7). Returns the launch counts of the runs."""
+    warm = os.path.join(mle_run, "checkpoint_last")
+    disc = {"dis_loss_freq": 1, "gen_loss_freq": 1}
+    total, runs = _gan_cli_runs(_native, "gan", "experiment_cnn.yml",
+                                GAN_OVERRIDES, disc, warm)
     phase("main_path.gan", overrides=GAN_OVERRIDES, discriminator=disc,
           warm_start=os.path.relpath(warm, ROOT), **runs)
     return total
 
 
-def measure_gan(kc, card: str) -> dict:
-    """bf16 at the GAN op-point (B 64, M 64, 59 sampled tokens): the dis
-    phase (5 updates) and the gen phase in ms, and sampled tokens/s, of the
-    kernel path against the plain path (the sampler and chain plain
-    versions on the card) in turns; then each of K4, K5, K6 and K7 per
-    launch against its plain version, beside its bound, in bf16 and fp32,
-    and one K6 and one K7 call traced (profile_chain)."""
+def _time_gan_phases(cases: dict, lanes: int) -> dict:
+    """The dis phase, the gen phase and one sampling pass (a micro-batch of
+    ``lanes``) of the plain and the kernel route's ``kernel_check.GanCase``,
+    after a warm-up, in turns (plain, kernel, kernel, plain); ms and the
+    sampled tokens/s."""
     from transformer_gan_torch.models import gan as gan_mod
-    res = {}
-    cases = {r: kc.GanCase("bfloat16", B_GAN, "cuda", route=r, dis_steps=5,
-                           host_draws=False)
-             for r in ("plain", "kernel")}
 
     def phase_s(route, which):
         torch.cuda.synchronize()
@@ -1222,7 +1290,7 @@ def measure_gan(kc, card: str) -> dict:
         ph = cases[route].phases
         data = ph._next_dis_batch()[0]
         draws = ph._draws()
-        noise = [draws.gumbel(c, n, B_GAN, 310)
+        noise = [draws.gumbel(c, n, lanes, 310)
                  for c, n in enumerate(ph.gcfg.chunk_lengths())]
         params = cases[route].state.params()
         torch.cuda.synchronize()
@@ -1240,11 +1308,26 @@ def measure_gan(kc, card: str) -> dict:
         timed[which] = {"kernel_ms": (turns[1] + turns[2]) / 2 * 1e3,
                         "plain_ms": (turns[0] + turns[3]) / 2 * 1e3,
                         "turns_s": turns}
-    toks = cases["kernel"].tokens_per_pass()
+    toks = lanes * sum(cases["kernel"].phases.gcfg.chunk_lengths())
     timed["sample"].update(
         tokens=toks,
         kernel_tokens_per_s=toks / (timed["sample"]["kernel_ms"] / 1e3),
         plain_tokens_per_s=toks / (timed["sample"]["plain_ms"] / 1e3))
+    return timed
+
+
+def measure_gan(kc, card: str) -> dict:
+    """bf16 at the GAN op-point (B 64, M 64, 59 sampled tokens): the dis
+    phase (5 updates) and the gen phase in ms, and sampled tokens/s, of the
+    kernel path against the plain path (the sampler and chain plain
+    versions on the card) in turns; then each of K4, K5, K6 and K7 per
+    launch against its plain version, beside its bound, in bf16 and fp32,
+    and one K6 and one K7 call traced (profile_chain)."""
+    res = {}
+    cases = {r: kc.GanCase("bfloat16", B_GAN, "cuda", route=r, dis_steps=5,
+                           host_draws=False)
+             for r in ("plain", "kernel")}
+    timed = _time_gan_phases(cases, B_GAN)
     phase("numbers.gan", B=B_GAN, M=kc.GAN_MEM, dtype="bfloat16", card=card,
           dis_phase=timed["dis"], gen_phase=timed["gen"],
           sampling=timed["sample"])
@@ -1329,6 +1412,280 @@ def measure_gan(kc, card: str) -> dict:
     phase("numbers.reverse_chain_floor", stream_floor_ms=kc.chain_stream_bytes(
         59, B_GAN, kc.GAN_MEM, kc.GAN_MEM) / kc.PEAK_BYTES * 1e3)
     return res
+
+
+# ---------------------------------------------------------------------------
+# The spanbert op-point: BERT pretraining and the BERT critic under wgan-gp
+# ---------------------------------------------------------------------------
+
+# experiment_spanbert.yml at one card's batch (128 of the reference's 512
+# over 4 GPUs): DISCRIMINATOR.batch_chunk 4 gives 32 GAN lanes; tgt_len 128
+# over sample_chunks_mem 2 gives chunks of 64 tokens, the first 59 after the
+# 5-token context: K4 calls of 32 + 27 and 32 + 32, K6 at n 59 and 64, all
+# at mem_len 128. TRAIN.batch_chunk 4: the MLE step's K1f / K1b at q 128,
+# B 32, M 1024.
+B_SPAN, SPAN_MEM = 32, 128
+SPAN_OVERRIDES = {"batch_size": 128, "max_step": 3, "log_interval": 1,
+                  "eval_interval": 3}
+# cli.bert_pretrain's defaults (block 512, 16 rows, lr 5e-5, 15% masking)
+# in bf16: tens of steps, an eval at 15 and 30, saves at 10 / 20 / 30 with
+# save_total_limit 2 (checkpoint-10 rotated out)
+BERT_STEPS = 30
+BERT_ARGS = ["--max_steps", str(BERT_STEPS), "--logging_steps", "5",
+             "--save_steps", "10", "--eval_steps", "15", "--save_total_limit",
+             "2", "--compute_dtype", "bfloat16"]
+
+
+def spanbert_case(bert_ckpt: str) -> dict:
+    """kernel_check.GanCase's arguments for the spanbert config with the
+    smoke's MLM checkpoint as the critic."""
+    return {"config": "experiment_spanbert.yml",
+            "overrides": {"DISCRIMINATOR": {"BERT": {"model_path": bert_ckpt}}}}
+
+
+def check_spanbert_shapes(kc) -> dict:
+    """The GAN kernels at the spanbert op-point's shapes against their plain
+    versions, fp32 and bf16 with the existing tolerances: K4 over the four
+    calls of a micro-batch (32 and 27 tokens of chunk 0, then 32 and 32 of
+    chunk 1 on the ring K4 left, counts from 0 and from the prime's 4) and
+    K5 the same way; K6 and K7 at n 59 (count 4, chunk 0) and n 64 (counts
+    63 and 128); K1f / K1b at the MLE step's q 128, B 32, M 1024."""
+    errs = {k: {} for k in ("K4", "K5", "K6", "K7", "v2", "fwd_v2")}
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        for count, step in ((0, False), (4, False), (4, True)):
+            res = kc.check_decode(dtype, B_SPAN, count, chunks=(32, 27, 32, 32),
+                                  step=step, M=SPAN_MEM)
+            cases.append({k: res[k] for k in ("kernel", "dtype", "B", "count",
+                                              "ok", "max_abs_err")}
+                         | {"calls": [{k: c[k] for k in c
+                                       if k != "first_divergence"}
+                                      for c in res["chunks"]]})
+            if not res["ok"]:
+                fail(f"GAN sampler kernel disagrees at B {B_SPAN}, M "
+                     f"{SPAN_MEM}: {res}")
+            errs[res["kernel"]][dtype] = max(errs[res["kernel"]].get(dtype, 0.0),
+                                             res["max_abs_err"])
+        for n, count in ((59, 4), (64, 63), (64, SPAN_MEM)):
+            res = kc.check_chain(dtype, B_SPAN, count, 1.0, n=n, M=SPAN_MEM)
+            cases.append(res)
+            if not res["ok"]:
+                fail(f"chain backward kernel disagrees at B {B_SPAN}, M "
+                     f"{SPAN_MEM}, n {n}: {res}")
+            for key in ("K6", "K7"):
+                errs[key][dtype] = max(errs[key].get(dtype, 0.0), res[key])
+            torch.cuda.empty_cache()
+        res = kc.check_attention_bwd("v2", getattr(torch, dtype), 128, B_SPAN,
+                                     TRAIN_MEM, TRAIN_MEM, rate=0.1)
+        cases.append({k: res[k] for k in ("variant", "dtype", "q", "B", "M",
+                                          "max_abs_err", "ok")})
+        if not res["ok"]:
+            fail(f"K1f / K1b disagree at q 128, B {B_SPAN}, M {TRAIN_MEM}: "
+                 f"{res}")
+        errs["v2"][dtype] = max(v["max_abs_err"] for v in res["grads"].values())
+        errs["fwd_v2"][dtype] = res["o_max_abs_err"]
+        del res
+        torch.cuda.empty_cache()
+    phase("kernels.spanbert_shapes", B=B_SPAN, M=SPAN_MEM, cases=cases,
+          max_abs_err=errs)
+    return errs
+
+
+def run_bert_pretrain(_native) -> str:
+    """``transformer_gan_torch.cli.bert_pretrain`` at full width (5 layers,
+    hidden 768) in bf16 on a seeded random corpus: BERT_STEPS steps, two
+    evals, three saves and the rotation. Returns the last checkpoint."""
+    import math
+    from transformer_gan_torch.cli import bert_pretrain
+    from transformer_gan_torch.config import PACKAGED_VOCAB
+    from transformer_gan_torch.train import checkpoint as ckpt
+    work = os.path.join(ROOT, "build", "chip_smoke", "bert")
+    data, out = os.path.join(work, "data"), os.path.join(work, "out")
+    write_random_corpus(data, PACKAGED_VOCAB, n_train=64, train_len=2048,
+                        n_eval=34, eval_len=500, seed=2)
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    tr = bert_pretrain.main(["--train_data_file", data, "--output_dir", out,
+                             "--vocab_file", PACKAGED_VOCAB] + BERT_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in tr.history if "loss" in h]
+    evals = [h["eval_loss"] for h in tr.history if "eval_loss" in h]
+    kept = sorted(os.listdir(out))
+    path = os.path.join(out, f"checkpoint-{BERT_STEPS}")
+    meta = ckpt.load_bert_metadata(path)
+    params = ckpt.load_bert_params(path)
+    res = {"steps": tr.step, "wall_s": wall, "losses": losses,
+           "eval_losses": evals, "checkpoints": kept, "metadata": meta,
+           "params": sum(v.numel() for v in params.values()),
+           "train_blocks": len(tr.train_blocks),
+           "valid_blocks": len(tr.valid_blocks), "args": BERT_ARGS}
+    phase("main_path.bert_pretrain", **res)
+    if (tr.step != BERT_STEPS or len(losses) != BERT_STEPS // 5
+            or len(evals) != 2
+            or not all(math.isfinite(x) for x in losses + evals)):
+        fail(f"BERT pretraining logged no finite losses: {res}")
+    if (kept != [f"checkpoint-{BERT_STEPS - 10}", f"checkpoint-{BERT_STEPS}"]
+            or meta != {"step": BERT_STEPS, "config": {
+                "vocab_size": 311, "num_hidden_layers": 5,
+                "hidden_size": 768}}
+            or not all(torch.equal(v, tr.params()[k].cpu())
+                       for k, v in params.items())):
+        fail(f"BERT pretraining wrote no rotated checkpoint: {res}")
+    return path
+
+
+def run_gan_bert_path(_native, mle_run: str, bert_ckpt: str) -> dict:
+    """The training CLI on experiment_spanbert.yml at the op-point (batch
+    128, warm start from the MLE run, the critic from the MLM checkpoint,
+    GAN phases from step 1), 3 steps and --restart for a 4th (K4, K6, K1f /
+    K1b); then the per-token sampler and the recomputing chain (K5, K7).
+    Each run: the critic's trunk equal to the checkpoint's bitwise after
+    the updates, its pooler and classifier weights moved. Returns the
+    launch counts of the runs."""
+    from transformer_gan_torch.models import bert as bert_mod
+    from transformer_gan_torch.train import checkpoint as ckpt
+    warm = os.path.join(mle_run, "checkpoint_last")
+    disc = {"start_iter": 0, "dis_loss_freq": 1, "gen_loss_freq": 1,
+            "BERT": {"model_path": bert_ckpt}}
+    mlm = ckpt.load_bert_params(bert_ckpt)
+
+    def critic(tr, name):
+        live = {k: v.detach().cpu() for k, v in tr.gan.dis_params().items()}
+        trunk = bert_mod.trunk_names(live)
+        fresh = bert_mod.init_bert_params(tr.gan.dis_cfg, seed=17)
+        same = all(torch.equal(live[k], mlm[k]) for k in trunk)
+        moved = [k for k in ("pooler_w", "pooler_b", "classifier_w")
+                 if not torch.equal(live[k], fresh[k])]
+        if not same or len(moved) != 3 or len(tr.gan.dis_frozen) != len(trunk):
+            fail(f"the spanbert run {name} moved the frozen critic trunk "
+                 f"({not same}) or not its head ({moved})")
+        return {"trunk_leaves_bitwise_equal": len(trunk), "head_moved": moved}
+
+    total, runs = _gan_cli_runs(_native, "gan_bert", "experiment_spanbert.yml",
+                                SPAN_OVERRIDES, disc, warm, check=critic)
+    phase("main_path.gan_bert", overrides=SPAN_OVERRIDES, discriminator=disc,
+          warm_start=os.path.relpath(warm, ROOT), **runs)
+    return total
+
+
+def measure_gan_bert(kc, card: str, bert_ckpt: str) -> dict:
+    """bf16 at the spanbert op-point (B 128 in 4 micro-batches of 32, M 128,
+    the MLM checkpoint as the critic): the dis phase (1 update) and the gen
+    phase in ms and the sampling pass's tokens/s, kernel path against plain
+    path in turns; one gen update by part (profile_chain.gen_update); then
+    K4, K5, K6, K7, K1f and K1b at the op-point's shapes against their plain
+    versions, beside their bounds. Returns the kernels line's numbers."""
+    from transformer_gan_torch import profile_chain
+    res = {}
+    cases = {r: kc.GanCase("bfloat16", 128, "cuda", route=r, host_draws=False,
+                           **spanbert_case(bert_ckpt))
+             for r in ("plain", "kernel")}
+    timed = _time_gan_phases(cases, B_SPAN)
+    phase("numbers.gan_bert", B=128, lanes=B_SPAN, M=SPAN_MEM,
+          dtype="bfloat16", card=card, dis_phase=timed["dis"],
+          gen_phase=timed["gen"], sampling=timed["sample"])
+    del cases["plain"]
+    parts = profile_chain.gen_update(cases["kernel"])
+    phase("numbers.gan_bert_gen_update", card=card, **parts)
+    del cases
+    torch.cuda.empty_cache()
+
+    no_lib = "none computes the gumbel sampler through the decoder"
+    dec = kc.DecodeCase("bfloat16", B_SPAN, 4, M=SPAN_MEM)
+    g = dec.noise(32)
+    ms, plain_ms = kc.time_in_turns(lambda: dec.run(32, g),
+                                    lambda: dec.run(32, g, plain=True), 5)
+    bound, by = kc.bound_ms(*kc.sampler_work(32, B_SPAN, SPAN_MEM, 4))
+    res["span_K4"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "library_ms": None,
+                      "library_call": no_lib,
+                      "shape": f"32 tokens, B {B_SPAN}, M {SPAN_MEM}, count 4"
+                               ", bf16"}
+    L, _, H, B, _, dh = dec.kv.shape
+    staged = torch.zeros((L, 2, H, B, 32, dh), dtype=dec.kv.dtype,
+                         device=dec.kv.device)
+
+    def step(plain):
+        fn = (dec.ops.fused_decode_step_plain if plain
+              else dec.ops.fused_decode_step)
+        return fn(dec.stacked, dec.cfg, dec.kv, dec.R, staged, dec.ids, g[5],
+                  5, dec.count)
+
+    ms, plain_ms = kc.time_in_turns(lambda: step(False), lambda: step(True),
+                                    20)
+    bound, by = kc.bound_ms(*kc.sampler_work(1, B_SPAN, SPAN_MEM, 4, t0=5))
+    res["span_K5"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "library_ms": None,
+                      "library_call": no_lib,
+                      "shape": f"1 token at step 5, B {B_SPAN}, M {SPAN_MEM}, "
+                               "count 4, bf16"}
+    del dec, staged
+    chain = kc.ChainCase("bfloat16", B_SPAN, 63, n=64, M=SPAN_MEM)
+    for key, variant, recompute in (("span_K6", "res", False),
+                                    ("span_K7", "recompute", True)):
+        ms, plain_ms = kc.time_in_turns(lambda: chain.run(variant),
+                                        lambda: chain.run("plain"), 2)
+        bound, by = kc.bound_ms(*kc.chain_work(64, B_SPAN, SPAN_MEM, 63,
+                                               recompute))
+        res[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": None,
+                    "library_call": "none computes the straight-through "
+                    "chain's backward",
+                    "shape": f"n 64, B {B_SPAN}, M {SPAN_MEM}, count 63, bf16"}
+    del chain
+    torch.cuda.empty_cache()
+    fwd, plain, bwd, bwd_p, fa, ba, kw = kc.attention_bwd_case(
+        "v2", torch.bfloat16, 128, B_SPAN, TRAIN_MEM, TRAIN_MEM, rate=0.1)
+    shape = f"q 128, B {B_SPAN}, M {TRAIN_MEM}, bf16, dropatt 0.1"
+    none = "none: the position term comes from rk inside the kernel"
+    ms, plain_ms = kc.time_in_turns(lambda: fwd(*fa, **kw),
+                                    lambda: plain(*fa, **kw), iters=10)
+    bound, by = kc.bound_ms(*kc.attention_work("v2", 128, B_SPAN, TRAIN_MEM,
+                                               TRAIN_MEM, False))
+    res["span_v2"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "library_ms": None,
+                      "library_call": none, "shape": shape}
+    args = ba(*fwd(*fa, **kw))
+    ms, plain_ms = kc.time_in_turns(lambda: bwd(*args, **kw),
+                                    lambda: bwd_p(*args, **kw), iters=10)
+    bound, by = kc.bound_ms(*kc.attention_work(
+        "v2", 128, B_SPAN, TRAIN_MEM, TRAIN_MEM, False, backward=True))
+    res["span_bwd_v2"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by, "library_ms": None,
+                          "library_call": none, "shape": shape}
+    del fa, ba, args
+    torch.cuda.empty_cache()
+    phase("numbers.spanbert_kernels", card=card,
+          **{k: v for k, v in res.items()})
+    return res
+
+
+def measure_bert_pretrain(card: str) -> None:
+    """bf16 MLM steps at the pretrainer's defaults (16 rows of 512 tokens,
+    5 layers, hidden 768) on the smoke's MLM corpus: ms a step (host clock
+    around 10 steps ending in a sync, after 3 warm-up steps) and tokens/s."""
+    from transformer_gan_torch.bert.mlm import MlmTrainer
+    from transformer_gan_torch.config import PACKAGED_VOCAB
+    work = os.path.join(ROOT, "build", "chip_smoke", "bert")
+    tr = MlmTrainer(os.path.join(work, "data"), os.path.join(work, "timing"),
+                    PACKAGED_VOCAB, compute_dtype="bfloat16", device="cuda")
+    batch = torch.from_numpy(tr.train_blocks[:tr.batch_size]).to(tr.device)
+    for _ in range(3):
+        tr.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        loss = tr.train_step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 10 * 1e3
+    tokens = tr.batch_size * tr.block_size
+    phase("numbers.bert_pretrain", card=card, dtype="bfloat16",
+          rows=tr.batch_size, block=tr.block_size, ms_per_step=ms,
+          tokens_per_s=tokens / (ms / 1e3), loss=float(loss),
+          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
 if __name__ == "__main__":

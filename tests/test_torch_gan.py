@@ -270,13 +270,21 @@ def test_dis_losses_and_grads_match_jax(loss_type):
 
 
 def test_gan_config_refuses_unported():
+    """PPO (either discriminator's loss), the rolling cache, the raw-hidden
+    memory and an unknown discriminator raise; cnn and bert pass."""
     from transformer_gan_torch.config import check_gan_config
-    for key, value in (("DISCRIMINATOR.type", "bert"),
-                       ("DISCRIMINATOR.CNN.loss_type", "ppo"),
-                       ("TPU.gan_decode_cache", "rolling"),
-                       ("TPU.cache_kv", False)):
+    for dis_type in ("cnn", "bert"):
         cfg = training_config()
-        cfg.DISCRIMINATOR.type = "cnn"
+        cfg.DISCRIMINATOR.type = dis_type
+        check_gan_config(cfg)
+    for dis_type, key, value in (
+            ("rnn", "DISCRIMINATOR.type", "rnn"),
+            ("cnn", "DISCRIMINATOR.CNN.loss_type", "ppo"),
+            ("bert", "DISCRIMINATOR.BERT.loss_type", "ppo-gp"),
+            ("cnn", "TPU.gan_decode_cache", "rolling"),
+            ("bert", "TPU.cache_kv", False)):
+        cfg = training_config()
+        cfg.DISCRIMINATOR.type = dis_type
         *groups, name = key.split(".")
         node = cfg
         for g in groups:

@@ -16,7 +16,8 @@ attention, lane-tiled GEMVs) at B 1, 3 and 8 with M 4146 and ragged M, at
 the GAN op-point and narrower lane tiles, K5 at step 5, determinism and its
 launch counters; the bf16 reverse chain of K6 / K7 (csrc/chain_bwd_tc.cu)
 at B 72, 64, 40, 8 and 5, n 59 and 27, full and odd counts, post- and pre-norm,
-determinism and its launch counters."""
+determinism and its launch counters; K4 / K5 and K6 / K7 at the spanbert
+op-point's shapes (B 32, M 128, n 59 and 64), fp32 and bf16."""
 
 import pytest
 import torch
@@ -417,3 +418,28 @@ def test_bf16_reverse_chain_counts_launches(cuda):
     assert _native.LAUNCHES["chain_bwd_recompute"] == 2
     assert _native.LAUNCHES["chain_bwd_res_tc"] == 1
     assert _native.LAUNCHES["chain_bwd_recompute_tc"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The spanbert op-point: 32 GAN lanes, M 128, chunks of 59 and 64 tokens
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("step", [False, True], ids=["K4", "K5"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("count", [0, 4])
+def test_decode_kernels_at_the_spanbert_shape(cuda, step, dtype, count):
+    """A micro-batch's four calls on one ring: 32 and 27 tokens (chunk 0),
+    then 32 and 32 (chunk 1, counts above 0); the bf16 GEMVs on two
+    m-tiles."""
+    res = kc.check_decode(dtype, 32, count, chunks=(32, 27, 32, 32),
+                          step=step, M=128)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,count", [(59, 4), (64, 63), (64, 128)])
+def test_chain_kernels_at_the_spanbert_shape(cuda, dtype, n, count):
+    """K6 / K7 at n 59 (chunk 0 after the prime) and n 64, the largest
+    chunk the chain takes at M 128 (KL 192)."""
+    res = kc.check_chain(dtype, 32, count, 1.0, n=n, M=128)
+    assert res["ok"], res

@@ -37,6 +37,9 @@ bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax.")
              or k.startswith("jaxlib") or k.startswith("transformer_gan_tpu"))
 assert not bad, bad
 assert len(names) > 20, names
+assert {"transformer_gan_torch.bert.mlm", "transformer_gan_torch.bert.tokenizer",
+        "transformer_gan_torch.models.bert",
+        "transformer_gan_torch.cli.bert_pretrain"} <= set(names), names
 print(len(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -82,9 +85,11 @@ def test_port_vocab_is_its_own_copy():
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
-    """Without a card, Trainer, cli.train and cli.generate raise unless the
-    caller passes the CPU."""
+    """Without a card, Trainer, cli.train, cli.generate, MlmTrainer and
+    cli.bert_pretrain raise unless the caller passes the CPU."""
     from transformer_gan_torch import _native
+    from transformer_gan_torch.bert.mlm import MlmTrainer
+    from transformer_gan_torch.cli import bert_pretrain
     from transformer_gan_torch.cli import generate as gcli
     from transformer_gan_torch.cli import train as tcli
     from transformer_gan_torch.config import inference_config, training_config
@@ -103,6 +108,14 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     icfg.OUTPUT.output_txt_directory = str(tmp_path / "out")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gcli.main(icfg)
+    from transformer_gan_torch.config import PACKAGED_VOCAB
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MlmTrainer(str(tmp_path / "data"), str(tmp_path / "bert"),
+                   PACKAGED_VOCAB)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bert_pretrain.main(["--train_data_file", str(tmp_path / "data"),
+                            "--output_dir", str(tmp_path / "bert"),
+                            "--vocab_file", PACKAGED_VOCAB])
 
 
 # ---------------------------------------------------------------------------

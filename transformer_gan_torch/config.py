@@ -101,15 +101,16 @@ def is_null(value) -> bool:
 
 def check_gan_config(cfg) -> None:
     """Raise ``NotImplementedError`` for a GAN setting the port does not
-    run: the BERT discriminator, PPO losses, the rolling decode cache and
-    the raw-hidden memory (``TPU.cache_kv`` off)."""
+    run: a discriminator other than cnn and bert, PPO losses, the rolling
+    decode cache and the raw-hidden memory (``TPU.cache_kv`` off)."""
     d = cfg.DISCRIMINATOR
     if is_null(d.type):
         return
-    if d.type != "cnn":
+    if d.type not in ("cnn", "bert"):
         raise NotImplementedError(
-            f"DISCRIMINATOR.type {d.type!r} is not ported yet (cnn is)")
-    if "ppo" in str(d.CNN.loss_type):
+            f"DISCRIMINATOR.type {d.type!r} is not ported (cnn and bert are)")
+    loss_type = d.BERT.loss_type if d.type == "bert" else d.CNN.loss_type
+    if "ppo" in str(loss_type):
         raise NotImplementedError("PPO losses are not ported yet")
     if str(cfg.TPU.gan_decode_cache) == "rolling":
         raise NotImplementedError(

@@ -25,8 +25,12 @@ and the port turns it into its own checkpoint files::
 The optimizers' flat ``[P]`` moments are in the JAX tree's ``ravel_pytree``
 order in both packages (``train.optim.flat_names``); the GAN phases' optax
 chains (clip, Adam, scale, mutable lr, scale) keep Adam's state at index 1
-and the multiplier at index 3. :func:`archive_from_checkpoint` writes the
-port's checkpoint back under the same names.
+and the multiplier at index 3, the BERT critic's (the same chain inside the
+freeze's (zero, chain, zero)) at 1/1/0 and 1/3. :func:`archive_from_checkpoint` writes the
+port's checkpoint back under the same names. A BERT (MLM) checkpoint is its
+``params`` tree and ``metadata.json`` (:func:`import_bert_archive`,
+:func:`archive_from_bert_checkpoint`); the JAX ``layers`` list becomes
+``layers.i.name``.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ import torch
 PARAMS_SUFFIX = ".pt"
 FORMAT = "transformer_gan_torch.params/1"
 ADAM, LR = "1", "3"   # the GAN optax chains' Adam and multiplier states
+MASKED_ADAM, MASKED_LR = "1/1/0", "1/3"   # the BERT critic's, frozen leaves
 
 
 def read_archive(path: str) -> dict[str, np.ndarray]:
@@ -79,12 +84,14 @@ def adam_chain_state_from_archive(arrays: dict, prefix: str, layout):
     """A GAN phase's optax chain state as a ``FusedOptState`` over the flat
     vector of ``layout`` (its Adam moments are trees of the parameters)."""
     from .train.optim import FusedOptState
-    adam = f"{prefix}/{ADAM}"
+    a, lr = ((MASKED_ADAM, MASKED_LR) if f"{prefix}/{MASKED_ADAM}/count" in arrays
+             else (ADAM, LR))
+    adam = f"{prefix}/{a}"
     return FusedOptState(
         count=int(arrays[f"{adam}/count"]),
         mu=layout.flatten(tensors_from_archive(arrays, f"{adam}/mu")),
         nu=layout.flatten(tensors_from_archive(arrays, f"{adam}/nu")),
-        lr_scale=float(arrays[f"{prefix}/{LR}/lr_scale"]))
+        lr_scale=float(arrays[f"{prefix}/{lr}/lr_scale"]))
 
 
 def params_from_jax(np_tree: dict) -> dict[str, torch.Tensor]:
@@ -169,12 +176,14 @@ def archive_from_checkpoint(work_dir: str, name: str) -> dict[str, np.ndarray]:
         if key not in gan:
             continue
         st, layout = gan[key], FlatLayout.of(tree)
-        adam = f"{key}/{ADAM}"
+        a, lr = ((MASKED_ADAM, MASKED_LR) if key == "dis_opt_state"
+                 and "word_embeddings" in tree else (ADAM, LR))
+        adam = f"{key}/{a}"
         out[f"{adam}/count"] = np.asarray(st.count, np.int32)
         for moment in ("mu", "nu"):
             out.update(_tree_names(f"{adam}/{moment}", layout.unflatten(
                 getattr(st, moment))))
-        out[f"{key}/{LR}/lr_scale"] = np.asarray(st.lr_scale, np.float32)
+        out[f"{key}/{lr}/lr_scale"] = np.asarray(st.lr_scale, np.float32)
     return out
 
 
@@ -190,11 +199,7 @@ def import_archive(path: str, work_dir: str, name: str | None = None,
     from .train.optim import FlatLayout
     stem = path[:-4] if path.endswith(".npz") else path
     name = name or os.path.basename(stem)
-    metadata = metadata or os.path.join(stem, "metadata.json")
-    meta = {}
-    if os.path.exists(metadata):
-        with open(metadata) as f:
-            meta = json.load(f)
+    meta = _metadata(stem, metadata)
     arrays = read_archive(path)
     params = tensors_from_archive(arrays, "params")
     gan = None
@@ -208,6 +213,36 @@ def import_archive(path: str, work_dir: str, name: str | None = None,
     os.makedirs(work_dir, exist_ok=True)
     return ckpt.save_checkpoint(work_dir, name, params,
                                 opt_state_from_archive(arrays), meta, gan=gan)
+
+
+def _metadata(stem: str, metadata: str | None) -> dict:
+    metadata = metadata or os.path.join(stem, "metadata.json")
+    if os.path.exists(metadata):
+        with open(metadata) as f:
+            return json.load(f)
+    return {}
+
+
+def import_bert_archive(path: str, out_dir: str,
+                        metadata: str | None = None) -> str:
+    """Write the BERT checkpoint in archive ``path`` (a JAX MLM
+    ``checkpoint-N``: its ``params`` tree, and its metadata.json, by default
+    ``<archive without .npz>/metadata.json``) as the port's BERT checkpoint
+    directory ``out_dir``. Returns the directory."""
+    from .train import checkpoint as ckpt
+    stem = path[:-4] if path.endswith(".npz") else path
+    out_dir = os.path.abspath(out_dir)
+    return ckpt.save_bert_checkpoint(
+        os.path.dirname(out_dir), os.path.basename(out_dir),
+        tensors_from_archive(read_archive(path), "params"),
+        _metadata(stem, metadata))
+
+
+def archive_from_bert_checkpoint(path: str) -> dict[str, np.ndarray]:
+    """The port's BERT checkpoint directory as archive entries under the
+    JAX package's tree paths (the inverse of :func:`import_bert_archive`)."""
+    from .train import checkpoint as ckpt
+    return _tree_names("params", ckpt.load_bert_params(path))
 
 
 def save_params(path: str, params: dict[str, torch.Tensor]) -> None:
@@ -237,10 +272,15 @@ def main(argv=None) -> None:
     out.add_argument("--train-state", help="run directory to write the whole "
                      "training checkpoint into (params, optimizer, metadata, "
                      "GAN state)")
+    out.add_argument("--bert-dir", help="BERT checkpoint directory to write "
+                     "an MLM checkpoint into (params.pt, metadata.json)")
     args = ap.parse_args(argv)
     if args.out:
         save_params(args.out, tensors_from_archive(read_archive(args.archive)))
         print(f"wrote {args.out}")
+    elif args.bert_dir:
+        print("wrote", import_bert_archive(args.archive, args.bert_dir,
+                                           metadata=args.metadata))
     else:
         print("wrote", import_archive(args.archive, args.train_state,
                                       metadata=args.metadata))

@@ -676,8 +676,9 @@ class HostDraws(gan_mod.Draws):
 
 class GanCase:
     """``train/gan_loop.GanPhases`` at full width on a seeded generator
-    (the baseline model, ``training_config/experiment_cnn.yml``'s
-    discriminator and GAN settings, batch ``B``), fed seeded real batches.
+    (the baseline model, the discriminator and GAN settings of ``config``,
+    ``training_config/experiment_cnn.yml`` by default, batch ``B``, and any
+    ``overrides`` of its groups), fed seeded real batches.
     ``route`` "plain" runs the sampler and chain plain versions on the same
     device. ``host_draws``: the random numbers of :class:`HostDraws` (the
     same on the card and the CPU) in place of the phases' own generator on
@@ -685,7 +686,8 @@ class GanCase:
 
     def __init__(self, dtype: str, B: int, device="cuda", route="kernel",
                  seed: int = 0, dis_steps: int = 1, chain_bwd: str = "auto",
-                 host_draws: bool = True):
+                 host_draws: bool = True, config: str = "experiment_cnn.yml",
+                 overrides: dict | None = None):
         import dataclasses
         import os
         import types
@@ -696,8 +698,8 @@ class GanCase:
         from .train import gan_loop
         from .train import optim as topt
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        cfg = training_config(os.path.join(root, "training_config",
-                                           "experiment_cnn.yml"))
+        cfg = training_config(os.path.join(root, "training_config", config))
+        cfg.merge(overrides or {})
         cfg.merge({"TRAIN": {"batch_size": B},
                    "DISCRIMINATOR": {"dis_steps": dis_steps},
                    "TPU": {"compute_dtype": dtype, "gan_chain_bwd": chain_bwd}})
@@ -724,10 +726,6 @@ class GanCase:
             self.phases._draws = lambda: HostDraws(host, device)
         self.state, self.B, self.cfg = state, B, cfg
 
-    def tokens_per_pass(self) -> int:
-        """Tokens one sampling pass generates (all lanes, all chunks)."""
-        return self.B * sum(self.phases.gcfg.chunk_lengths())
-
 
 # Card kernel path against CPU plain path, one dis and one gen update in
 # fp32 (check_gan_reference). Gradients: the relative Frobenius error of
@@ -749,10 +747,10 @@ GAN_REF_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-5, "grad_leaf_rel": 5e-5,
                "leaf_floor": 1e-6, "move_rel": 1e-3, "flip_share": 1e-3}
 
 
-def _gan_update(dtype: str, B: int, device) -> dict:
+def _gan_update(dtype: str, B: int, device, **case_kw) -> dict:
     """One dis and one gen update of :class:`GanCase`: logged losses, each
     phase's flat gradient and parameter move, layouts and base lrs."""
-    case = GanCase(dtype, B, device)
+    case = GanCase(dtype, B, device, **case_kw)
     ph = case.phases
     dis0 = ph.dis_flat.detach().clone()
     gen0 = case.state.flat.detach().clone()
@@ -785,14 +783,15 @@ def _grad_errs(ga, gb, layout, floor) -> dict:
             "grad_leaf_max_entry_rel_err": entry}
 
 
-def check_gan_reference(B: int = 8, devices=("cuda:0", "cpu")) -> dict:
-    """One dis and one gen update (fp32, the GAN op-point at batch ``B``)
-    of the kernel path on the card against the plain path on the CPU:
-    losses, every gradient leaf, the parameters' moves (``GAN_REF_TOL``).
-    The control, the same update in bf16 on the card, must read beyond the
-    leaf limit."""
-    k, p = (_gan_update("float32", B, dev) for dev in devices)
-    control = _gan_update("bfloat16", B, devices[0])
+def check_gan_reference(B: int = 8, devices=("cuda:0", "cpu"),
+                        **case_kw) -> dict:
+    """One dis and one gen update (fp32, the GAN op-point at batch ``B``;
+    ``case_kw``: :class:`GanCase`'s config and overrides) of the kernel
+    path on the card against the plain path on the CPU: losses, every
+    gradient leaf, the parameters' moves (``GAN_REF_TOL``). The control,
+    the same update in bf16 on the card, must read beyond the leaf limit."""
+    k, p = (_gan_update("float32", B, dev, **case_kw) for dev in devices)
+    control = _gan_update("bfloat16", B, devices[0], **case_kw)
     tol = GAN_REF_TOL
     res = {"B": B, "tol": tol,
            "kernel_losses": {"gen": k["gen_loss"], "dis": k["dis_loss"]},

@@ -1,7 +1,9 @@
 """Transformer-GAN composite: gumbel straight-through sampling and the
-discriminator losses of one GAN batch (RelGAN CNN discriminator).
+discriminator losses of one GAN batch (RelGAN CNN discriminator or BERT
+critic).
 
-Counterpart of ``transformer_gan_tpu/models/gan.py`` for ``dis_type: cnn``:
+Counterpart of ``transformer_gan_tpu/models/gan.py`` for ``dis_type: cnn``
+and ``bert`` (PPO is not ported):
 
 * context priming with no gradient; chunk 0 carries the real context
   one-hots at its head, later chunks seed from the detached last sample;
@@ -20,6 +22,11 @@ Counterpart of ``transformer_gan_tpu/models/gan.py`` for ``dis_type: cnn``:
 * :func:`gen_scan_chunked`, the sequential differentiable sampler, is the
   oracle path (``TPU.gan_fused_decode: off`` or ``TPU.gan_chain_bwd: off``).
 
+The BERT critic scores soft one-hots padded with a zero ``[MASK]`` column
+times its fp32 word embeddings, real ids through the embedding rows, both in
+one batched call; its gradient penalty takes one-hot interpolates over
+V + 1.
+
 Random numbers are inputs: a :class:`Draws` object hands out the gumbel
 noise of each sampled chunk, the discriminator's dropout draws and the
 gradient penalty's interpolation weights, from an explicit
@@ -36,6 +43,7 @@ from ..ops import chain_bwd as chain_ops
 from ..ops import decode as dec_ops
 from ..ops.decode_params import stack_decode_params
 from ..train.losses import get_losses, gradient_penalty
+from . import bert as bert_mod
 from . import discriminator as disc_mod
 from . import xl
 
@@ -75,10 +83,10 @@ class GanConfig:
     route: str = "kernel"
 
     def __post_init__(self):
-        if self.dis_type != "cnn":
+        if self.dis_type not in ("cnn", "bert"):
             raise NotImplementedError(
-                f"DISCRIMINATOR.type {self.dis_type!r} is not ported yet "
-                "(the port runs the RelGAN CNN discriminator)")
+                f"DISCRIMINATOR.type {self.dis_type!r} is not ported (the "
+                "port runs the RelGAN CNN and the BERT critic)")
         if "ppo" in self.loss_type:
             raise NotImplementedError("PPO losses are not ported yet")
         if self.chain_bwd not in ("auto", "kernel", "kernel_recompute", "jnp",
@@ -153,7 +161,8 @@ class Draws:
         return gumbel(self._uniform((n, bsz, V)))
 
     def dropout_u(self, chunk: int, shape) -> torch.Tensor:
-        """Uniform draws of the discriminator's dropout on the chunk."""
+        """Uniform draws of the discriminator's dropout on the chunk (the
+        BERT critic's: one call per dropout site, in ``models/bert`` order)."""
         return self._uniform(shape)
 
     def gp_alpha(self, chunk: int, bsz: int) -> torch.Tensor:
@@ -442,11 +451,28 @@ def sample_fake_chunks(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
 # Discriminator scoring and losses
 # ---------------------------------------------------------------------------
 
+def _bert_embed(dis_params, soft: torch.Tensor) -> torch.Tensor:
+    """[bsz, len, V + 1] one-hots or soft distributions times the critic's
+    word embeddings, in fp32 (``bert_encode`` casts)."""
+    return torch.einsum("ve,bcv->bce", dis_params["word_embeddings"], soft)
+
+
 def score_chunk(dis_params, dis_cfg, gcfg: GanConfig, real_ids, fake_soft, *,
                 train: bool = False, dropout_u=None):
     """(d_out_real, d_out_fake) of one chunk, real and fake scored in one
     discriminator call over [2b] rows. real_ids: [len, bsz];
-    fake_soft: [len, bsz, V]."""
+    fake_soft: [len, bsz, V]. ``dropout_u``: the RelGAN's draws (a tensor of
+    ``dropout_shape``) or the BERT critic's (``shape -> draws``)."""
+    if gcfg.dis_type == "bert":
+        bsz = real_ids.shape[1]
+        # zero column for [MASK]
+        fake = F.pad(fake_soft.transpose(0, 1), (0, 1))
+        emb_fake = _bert_embed(dis_params, fake)
+        emb_real = dis_params["word_embeddings"][real_ids.T]
+        both = torch.cat([emb_real.to(emb_fake.dtype), emb_fake])
+        d_both = bert_mod.bert_discriminator_score(
+            dis_params, dis_cfg, both, train=train, dropout_u=dropout_u)
+        return d_both[:bsz], d_both[bsz:]
     real_soft = F.one_hot(real_ids.T, gcfg.n_token).to(fake_soft.dtype)
     both = torch.cat([real_soft, fake_soft.transpose(0, 1)])
     d_both = disc_mod.relgan_logits(dis_params, dis_cfg, both, train=train,
@@ -457,9 +483,16 @@ def score_chunk(dis_params, dis_cfg, gcfg: GanConfig, real_ids, fake_soft, *,
 
 def chunk_gradient_penalty(dis_params, dis_cfg, gcfg: GanConfig, real_ids,
                            fake_soft, alpha):
-    """WGAN-GP on one-hot interpolates of one chunk."""
-    real = F.one_hot(real_ids.T, gcfg.n_token).float()
+    """WGAN-GP on one-hot interpolates of one chunk (over V + 1 for the BERT
+    critic, whose embedding product takes them)."""
     fake = fake_soft.transpose(0, 1).detach()
+    if gcfg.dis_type == "bert":
+        real = F.one_hot(real_ids.T, gcfg.n_token + 1).float()
+        return gradient_penalty(
+            lambda x: bert_mod.bert_discriminator_score(
+                dis_params, dis_cfg, _bert_embed(dis_params, x)),
+            real, F.pad(fake, (0, 1)), alpha)
+    real = F.one_hot(real_ids.T, gcfg.n_token).float()
     return gradient_penalty(
         lambda x: disc_mod.relgan_logits(dis_params, dis_cfg, x), real, fake,
         alpha)
@@ -482,7 +515,10 @@ def gan_losses_for_batch(gen_params, dis_params, dis_cfg, xcfg, gcfg: GanConfig,
         u = None
         if train_dis:
             fake = fake.detach()
-            u = draws.dropout_u(c, disc_mod.dropout_shape(dis_cfg, 2 * bsz))
+            if gcfg.dis_type == "bert":
+                u = (lambda shape, c=c: draws.dropout_u(c, shape))
+            else:
+                u = draws.dropout_u(c, disc_mod.dropout_shape(dis_cfg, 2 * bsz))
         d_real, d_fake = score_chunk(dis_params, dis_cfg, gcfg, real_ids, fake,
                                      train=train_dis, dropout_u=u)
         g, d = get_losses(d_real, d_fake, gcfg.loss_type)

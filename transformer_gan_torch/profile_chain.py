@@ -24,10 +24,11 @@ unedited one first, CUDA events), each held against the plain chain.
 ``--gen-update`` breaks one bf16 gen update (``GanPhases.gen_phase`` at B
 64, the kernel path) down by part, with the device synchronized around
 each: the prime, the sampler's operands, the sampling pass (K4), the
-window forward, RelGAN scoring, and in the backward the window recompute,
-the chain (K6), the autograd pass over the window and the rest of the
-backward (the discriminator's and the losses'); each part's time excludes
-the parts inside it.
+window forward, the discriminator's scoring, and in the backward the
+window recompute, the chain (K6), the autograd pass over the window and the
+rest of the backward (the discriminator's and the losses'); each part's
+time excludes the parts inside it. ``chip_smoke.py`` runs the same
+breakdown at the spanbert op-point (B 32, M 128, the BERT critic).
 
 ``--engine-against DIR`` builds the library from ``DIR``'s
 ``transformer_gan_torch/csrc`` (another checkout, e.g. the parent commit)
@@ -265,11 +266,14 @@ class _Parts:
         return fn
 
 
-def gen_update() -> None:
-    """One bf16 gen update at B 64 broken down by part."""
+def gen_update(case=None) -> dict:
+    """One bf16 gen update broken down by part (``case``: a
+    ``kernel_check.GanCase``; by default the cnn config at B 64). Prints the
+    parts and returns {untimed_ms, total_ms, parts: {name: ms}}."""
     from .models import gan, xl
     from .ops import chain_bwd as chain_ops
-    case = kc.GanCase("bfloat16", B, "cuda", route="kernel", host_draws=False)
+    case = case or kc.GanCase("bfloat16", B, "cuda", route="kernel",
+                              host_draws=False)
     ph = case.phases
     ph.gen_phase(1)                      # warm-up
     torch.cuda.synchronize()
@@ -282,7 +286,7 @@ def gen_update() -> None:
              (gan, "_sampler_operands", "sampler operands"),
              (gan, "_sample_fake_chunks_fused", "sampling pass (K4)"),
              (gan, "_window_st", "window forward"),
-             (gan, "score_chunk", "RelGAN scoring (forward)"),
+             (gan, "score_chunk", "discriminator scoring (forward)"),
              (xl, "decode_recompute_window",
               lambda s: s[-1][0] if s and s[-1][0] == "window forward"
               else "window recompute (backward)"),
@@ -300,13 +304,16 @@ def gen_update() -> None:
     finally:
         for owner, attr, fn in originals:
             setattr(owner, attr, fn)
-    print(f"gen update bf16 B {B}: {plain_ms:.3f} ms untimed, {total:.3f} ms "
-          "with a synchronize around each part")
+    print(f"gen update bf16 B {case.B}: {plain_ms:.3f} ms untimed, "
+          f"{total:.3f} ms with a synchronize around each part")
     for name, ms in sorted(parts.ms.items(), key=lambda kv: -kv[1]):
         print(f"  {name:34s} {ms:9.3f} ms ({100 * ms / total:.1f}%)")
     rest = total - sum(parts.ms.values())
     print(f"  {'the rest (optimizer, loss, host)':34s} {rest:9.3f} ms "
           f"({100 * rest / total:.1f}%)")
+    return {"untimed_ms": plain_ms, "total_ms": total,
+            "parts": dict(parts.ms, **{"the rest (optimizer, loss, host)":
+                                       rest})}
 
 
 def main() -> None:

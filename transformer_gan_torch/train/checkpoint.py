@@ -9,7 +9,12 @@ Counterpart of ``transformer_gan_tpu/train/checkpoint.py``:
 * warm start (``TRAIN.load_from_previous``): generator params only,
   non-strict (missing or mismatched names keep the fresh init);
 * the GAN payload: discriminator parameters and the gen / dis optimizer
-  states.
+  states;
+* BERT checkpoints (the MLM pretrainer's ``checkpoint-{step}``): a
+  directory holding ``params.pt`` (``convert.FORMAT``) and
+  ``metadata.json`` (``{"step", "config": {vocab_size, num_hidden_layers,
+  hidden_size}}``), the layout of the JAX package's orbax directory; the
+  critic takes its trunk from one (:func:`graft_bert_trunk`).
 
 A checkpoint ``NAME`` in the run directory is three files: ``NAME.pt``, the
 parameters in ``convert.FORMAT`` (what ``cli.generate`` reads as
@@ -143,4 +148,50 @@ def load_generator_params(path: str, template: dict) -> dict:
         out[name] = (old.to(fresh.device, fresh.dtype)
                      if old is not None and old.shape == fresh.shape
                      else fresh)
+    return out
+
+
+BERT_PARAMS = "params.pt"
+
+
+def save_bert_checkpoint(output_dir: str, name: str, params: dict,
+                         metadata: dict) -> str:
+    """Write BERT checkpoint directory ``output_dir/name``; returns it."""
+    path = os.path.join(os.path.abspath(output_dir), name)
+    os.makedirs(path, exist_ok=True)
+    _atomic(os.path.join(path, BERT_PARAMS),
+            lambda t: convert.save_params(t, params))
+
+    def write_meta(t):
+        with open(t, "w") as f:
+            json.dump(metadata, f)
+    _atomic(os.path.join(path, "metadata.json"), write_meta)
+    return path
+
+
+def load_bert_metadata(path: str) -> dict:
+    """``metadata.json`` of a BERT checkpoint directory ({} without one)."""
+    meta = os.path.join(os.path.abspath(path), "metadata.json")
+    if os.path.exists(meta):
+        with open(meta) as f:
+            return json.load(f)
+    return {}
+
+
+def load_bert_params(path: str, device=None) -> dict:
+    return convert.load_params(os.path.join(path, BERT_PARAMS), device)
+
+
+def graft_bert_trunk(path: str, template: dict, trunk: list[str]) -> dict:
+    """The critic's warm start from the MLM checkpoint directory ``path``
+    (the reference loads BertForMaskedLM and grafts its ``.bert`` trunk into
+    a fresh classification model): the ``trunk`` leaves whose names and
+    shapes match come from the checkpoint; the pooler, the classifier and
+    the critic's unused MLM head keep ``template``'s fresh values."""
+    loaded = load_bert_params(path)
+    out = dict(template)
+    for name in trunk:
+        old = loaded.get(name)
+        if old is not None and old.shape == template[name].shape:
+            out[name] = old.to(template[name].device, template[name].dtype)
     return out

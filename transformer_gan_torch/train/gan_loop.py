@@ -1,13 +1,22 @@
-"""GAN training phases for the RelGAN CNN discriminator.
+"""GAN training phases for the RelGAN CNN discriminator and the BERT
+critic.
 
 Counterpart of ``transformer_gan_tpu/train/gan_loop.py`` (``GanPhases``)
-for ``DISCRIMINATOR.type: cnn``: the discriminator phase (``dis_steps``
-updates over fresh real batches, gradients summed over the
+for ``DISCRIMINATOR.type: cnn`` and ``bert``: the discriminator phase
+(``dis_steps`` updates over fresh real batches, gradients summed over the
 ``batch_chunk`` micro-batches), the generator phase (one update of the
 trainer's own generator parameters), the logged losses and the
 checkpoint payload. Each phase's optimizer is clip, Adam, the base lr and
 a multiplier set from the phase's schedule at the training step
 (``train/optim.make_gan_optimizers``).
+
+The BERT critic is sized by ``DISCRIMINATOR.BERT`` or, when
+``BERT.model_path`` is an MLM checkpoint directory, by its metadata, and
+takes that checkpoint's trunk (:func:`_bert_dis_cfg`,
+``GanPhases._init_bert``). Its embeddings (unless ``random_weights``) and
+the layers named in ``BERT.freeze_layers`` are frozen exactly
+(:func:`_bert_frozen`): the dis phase takes no gradient of them and its
+optimizer zeroes their updates.
 
 The random numbers of a micro-batch come from :meth:`GanPhases._draws`, a
 ``models/gan.Draws`` over the phases' own generator on the device.
@@ -15,21 +24,66 @@ The random numbers of a micro-batch come from :meth:`GanPhases._draws`, a
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import torch
 
+from ..config import is_null
+from ..models import bert as bert_mod
 from ..models import discriminator as disc_mod
 from ..models import gan as gan_mod
+from . import checkpoint as ckpt
 from . import optim as topt
 from . import step as tstep
 
 
+def _bert_dis_cfg(cfg, vocab_len: int) -> bert_mod.BertConfig:
+    """The critic's ``BertConfig``: the DISCRIMINATOR.BERT sizes, overridden
+    by the checkpoint's recorded config when ``model_path`` is a checkpoint
+    directory (the reference sizes its BERT from the checkpoint); computes
+    in TPU.compute_dtype like the generator."""
+    b = cfg.DISCRIMINATOR.BERT
+    kw = dict(vocab_size=vocab_len + 1, hidden_size=int(b.hidden_size),
+              num_hidden_layers=int(b.num_hidden_layers),
+              num_attention_heads=int(b.num_attention_heads),
+              intermediate_size=int(b.intermediate_size),
+              compute_dtype=cfg.TPU.compute_dtype)
+    if (not b.random_weights and not is_null(b.model_path)
+            and os.path.isdir(b.model_path)):
+        meta = ckpt.load_bert_metadata(b.model_path).get("config", {})
+        for key in ("vocab_size", "hidden_size", "num_hidden_layers",
+                    "num_attention_heads", "intermediate_size"):
+            if key in meta:
+                kw[key] = int(meta[key])
+    if kw["vocab_size"] < vocab_len + 1:
+        raise ValueError(
+            f"BERT checkpoint vocab {kw['vocab_size']} cannot embed the "
+            f"{vocab_len}-token music vocab (+1 for [MASK])")
+    return bert_mod.BertConfig(**kw)
+
+
+def _bert_frozen(names, freeze_layers, random_weights: bool) -> list[str]:
+    """The critic's frozen leaves: the embeddings and their LayerNorm unless
+    the critic starts from random weights, and every leaf of the layers
+    whose index is in ``freeze_layers`` (reference calculate_unfreeze_idx)."""
+    frozen_layers = {int(i) for i in freeze_layers}
+
+    def frozen(name: str) -> bool:
+        if name.startswith("layers."):
+            return int(name.split(".")[1]) in frozen_layers
+        if "embedding" in name or name.startswith("emb_ln"):
+            return not random_weights
+        return False
+
+    return [n for n in names if frozen(n)]
+
+
 class GanPhases:
-    """Owns the discriminator, the gen / dis optimizer states and the phase
-    steps; wired into ``train/loop.Trainer``. The trainer provides
-    ``xcfg``, ``vocab``, ``state`` (its flat generator parameters),
-    ``n_devices``, ``device`` and ``dis_iter``."""
+    """Owns the discriminator (RelGAN CNN or BERT critic), the gen / dis
+    optimizer states and the phase steps; wired into ``train/loop.Trainer``.
+    The trainer provides ``xcfg``, ``vocab``, ``state`` (its flat generator
+    parameters), ``n_devices``, ``device`` and ``dis_iter``."""
 
     def __init__(self, trainer, cfg):
         self.cfg = cfg
@@ -39,16 +93,29 @@ class GanPhases:
         self.temperature = 1.0
         d = cfg.DISCRIMINATOR
         self.gcfg = gan_mod.GanConfig.from_cfg(cfg, len(trainer.vocab))
-        self.dis_cfg = disc_mod.RelganConfig(
-            embed_dim=d.CNN.embed_dim, num_rep=d.CNN.num_rep,
-            vocab_size=len(trainer.vocab), init=d.CNN.init,
-            compute_dtype=cfg.TPU.compute_dtype)
-        params = disc_mod.init_relgan_params(self.dis_cfg, seed=17)
+        if d.type == "bert":
+            self.dis_cfg = _bert_dis_cfg(cfg, len(trainer.vocab))
+            params = self._init_bert(self.dis_cfg, d.BERT.model_path,
+                                     d.BERT.random_weights, seed=17)
+        else:
+            self.dis_cfg = disc_mod.RelganConfig(
+                embed_dim=d.CNN.embed_dim, num_rep=d.CNN.num_rep,
+                vocab_size=len(trainer.vocab), init=d.CNN.init,
+                compute_dtype=cfg.TPU.compute_dtype)
+            params = disc_mod.init_relgan_params(self.dis_cfg, seed=17)
         self.dis_layout = topt.FlatLayout.of(params)
         self.dis_flat = self.dis_layout.flatten(params).to(self.device)
+        self.dis_frozen = (_bert_frozen(self.dis_layout.names,
+                                        d.BERT.freeze_layers,
+                                        d.BERT.random_weights)
+                           if d.type == "bert" else [])
+        frozen = set(self.dis_frozen)
+        trainable = (self.dis_layout.mask(lambda n: n not in frozen)
+                     if frozen else None)
         (self.gen_opt, self.gen_sched, self.dis_opt,
          self.dis_sched) = topt.make_gan_optimizers(
-             cfg, trainer.state.layout, self.dis_layout, trainer.n_devices)
+             cfg, trainer.state.layout, self.dis_layout, trainer.n_devices,
+             trainable=trainable)
         self.dis_opt_state = (None if d.freeze_discriminator
                               else self.dis_opt.init(self.dis_flat))
         self.gen_opt_state = self.gen_opt.init(trainer.state.flat.detach())
@@ -59,6 +126,26 @@ class GanPhases:
         self.log_gen_num = self.log_dis_num = 0
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _init_bert(dis_cfg, model_path, random_weights: bool, seed: int
+                   ) -> dict:
+        """Fresh critic parameters, with the trunk of the MLM checkpoint
+        directory ``model_path`` when there is one (the reference's
+        "bert_lm" path); without one, random weights and a warning."""
+        params = bert_mod.init_bert_params(dis_cfg, seed=seed)
+        if (not random_weights and not is_null(model_path)
+                and os.path.isdir(model_path)):
+            logging.info("Loading BERT discriminator weights from %s",
+                         model_path)
+            return ckpt.graft_bert_trunk(model_path, params,
+                                         bert_mod.trunk_names(params))
+        if not random_weights:
+            logging.warning("BERT discriminator checkpoint %s not found; "
+                            "starting from random weights", model_path)
+        else:
+            logging.info("Starting BERT discriminator from random weights")
+        return params
+
     def dis_params(self) -> dict:
         return self.dis_layout.unflatten(self.dis_flat)
 
@@ -91,6 +178,8 @@ class GanPhases:
             data_c = self._next_dis_batch()
             flat = self.dis_flat.detach().requires_grad_(True)
             params = self.dis_layout.unflatten(flat)
+            for name in self.dis_frozen:      # no gradient to compute
+                params[name] = params[name].detach()
             grad = torch.zeros_like(self.dis_flat)
             dsum = torch.zeros((), device=self.device)
             for c in range(gcfg.batch_chunk):

@@ -5,10 +5,10 @@ Owns the run directory, seeding, the iterators, the step functions,
 logging (the JAX package's ``Train Step ...`` and ``Eval step ...`` lines),
 evaluation with a compensated NLL sum, last / best / step checkpoints,
 ``--restart`` and the final best-checkpoint test evaluation. With a
-discriminator configured (``DISCRIMINATOR.type: cnn``) the GAN phases run
-after the MLE step from ``start_iter`` on (``train/gan_loop.GanPhases``),
-with the temperature annealed per step, their losses on the log line and
-their state in the checkpoints.
+discriminator configured (``DISCRIMINATOR.type: cnn`` or ``bert``) the GAN
+phases run after the MLE step from ``start_iter`` on
+(``train/gan_loop.GanPhases``), with the temperature annealed per step,
+their losses on the log line and their state in the checkpoints.
 
 The device is the card: ``device=None`` means CUDA and raises without one;
 the CPU (the plain path) only when the caller passes ``"cpu"``.

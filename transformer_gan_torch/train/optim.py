@@ -15,7 +15,10 @@ Counterpart of ``transformer_gan_tpu/train/optim.py``:
 * the GAN phases' optimizers (``make_gan_optimizers``): clip, Adam, the base
   lr, then a multiplier the host sets from the phase's schedule before each
   phase (``set_lr_multiplier``), over the generator's and the
-  discriminator's flat vectors.
+  discriminator's flat vectors. The BERT critic's adds weight decay after
+  Adam (its decay mask) and the exact freeze of the JAX package's
+  ``_masked``: a frozen leaf's gradient is zeroed before the clip and its
+  update after the chain (the optimizer's ``trainable`` mask).
 """
 from __future__ import annotations
 
@@ -70,6 +73,11 @@ class FlatLayout:
         return torch.repeat_interleave(
             torch.arange(len(sizes), device=device),
             torch.tensor(sizes, device=device))
+
+    def mask(self, pred) -> torch.Tensor:
+        """[P] bool: ``pred(name)`` of the leaf each entry belongs to."""
+        keep = torch.tensor([bool(pred(n)) for n in self.names])
+        return keep[self.segment_ids()]
 
 
 # ---------------------------------------------------------------------------
@@ -174,12 +182,20 @@ class FusedOptState:
 
 class FusedOptimizer:
     """clip -> adam / adamw / lamb -> schedule * base_lr -> lr_scale -> -1,
-    over the flat fp32 parameter vector, updated in place."""
+    over the flat fp32 parameter vector, updated in place.
+
+    ``decay_mask`` ([P] bool): adamw decays only these entries (all when
+    None). ``trainable`` ([P] bool): the other entries are frozen exactly;
+    their gradient is zeroed before the clip (it adds nothing to the norm,
+    and their Adam moments, zero from the start, stay zero) and their
+    update after the chain."""
 
     def __init__(self, optim_name: str, base_lr: float, schedule,
                  clip: float, weight_decay: float = 0.0, b1: float = 0.9,
                  b2: float = 0.999, trust_clip: float = 10.0,
-                 layout: FlatLayout | None = None):
+                 layout: FlatLayout | None = None, eps: float | None = None,
+                 decay_mask: torch.Tensor | None = None,
+                 trainable: torch.Tensor | None = None):
         name = optim_name.lower()
         if name not in ("adam", "adamw", "lamb", "jitlamb"):
             raise NotImplementedError(optim_name)
@@ -188,11 +204,15 @@ class FusedOptimizer:
         if self.lamb and layout is None:
             raise ValueError("lamb needs the parameter layout for its "
                              "per-leaf trust ratios")
-        self.eps = 1e-6 if self.lamb else 1e-8
+        if (decay_mask is not None or trainable is not None) and \
+                name != "adamw":
+            raise ValueError("decay and trainable masks are adamw's")
+        self.eps = eps if eps is not None else (1e-6 if self.lamb else 1e-8)
         self.base_lr, self.schedule, self.clip = base_lr, schedule, clip
         self.weight_decay, self.b1, self.b2 = weight_decay, b1, b2
         self.trust_clip = trust_clip
         self.layout = layout
+        self.decay_mask, self.trainable = decay_mask, trainable
         self._ids = None
 
     def init(self, flat: torch.Tensor) -> FusedOptState:
@@ -204,6 +224,9 @@ class FusedOptimizer:
                state: FusedOptState) -> FusedOptState:
         """Apply one update to ``flat`` in place; returns the new state."""
         b1, b2, wd, eps = self.b1, self.b2, self.weight_decay, self.eps
+        if self.trainable is not None:
+            self.trainable = self.trainable.to(flat.device)
+            grad = torch.where(self.trainable, grad, 0.0)
         gnorm = grad.square().sum().sqrt()
         g = grad * torch.where(gnorm < self.clip, 1.0, self.clip / gnorm)
         if self.name == "adam" and wd:
@@ -237,7 +260,13 @@ class FusedOptimizer:
                            ).item()
             direction = mu_hat / (nu_hat.sqrt() + eps)
             if self.name == "adamw" and wd:
-                direction = direction + wd * flat
+                decay = wd * flat
+                if self.decay_mask is not None:
+                    self.decay_mask = self.decay_mask.to(flat.device)
+                    decay = torch.where(self.decay_mask, decay, 0.0)
+                direction = direction + decay
+            if self.trainable is not None:
+                direction = torch.where(self.trainable, direction, 0.0)
         mult = self.schedule(state.count) * self.base_lr * state.lr_scale
         flat.add_(direction * (-mult))
         return FusedOptState(count=count, mu=mu, nu=nu,
@@ -260,14 +289,26 @@ def _no_schedule(step: int) -> float:
     return 1.0
 
 
+def gan_decay_mask(name: str) -> bool:
+    """The BERT critic's weight-decay mask: no decay on leaves named ``*_b``
+    or containing ``ln`` or ``bias`` (the MLM trainer's differs:
+    ``bert.mlm.mlm_decay_mask``)."""
+    leaf = name.rsplit(".", 1)[-1]
+    return not (leaf.endswith("_b") or "ln" in leaf or "bias" in leaf)
+
+
 def make_gan_optimizers(cfg, gen_layout: FlatLayout, dis_layout: FlatLayout,
-                        n_devices: int = 1):
+                        n_devices: int = 1,
+                        trainable: torch.Tensor | None = None):
     """The generator's and the discriminator's GAN-phase optimizers with
     their schedules: (gen_opt, gen_sched, dis_opt, dis_sched). Each is clip
     by TRAIN.clip, Adam (eps 1e-8), the base lr (DISCRIMINATOR.gen_lr over
     the device count; DISCRIMINATOR.CNN.learning_rate), then the mutable
     multiplier, which the host sets to ``sched(train_step)`` before each
-    phase (the reference steps these schedulers every training step)."""
+    phase (the reference steps these schedulers every training step). The
+    BERT critic's: clip, Adam (eps BERT.adam_epsilon), masked weight decay
+    (BERT.weight_decay, :func:`gan_decay_mask`), BERT.learning_rate, the
+    multiplier, frozen where ``trainable`` is False."""
     d = cfg.DISCRIMINATOR
     gen_sched = make_schedule(d.gen_scheduler, d.gen_lr, cfg.TRAIN.max_step,
                               d.gen_lr_min, d.gen_warmup_step)
@@ -275,6 +316,12 @@ def make_gan_optimizers(cfg, gen_layout: FlatLayout, dis_layout: FlatLayout,
                               d.dis_lr_min, d.dis_warmup_step)
     gen_opt = FusedOptimizer("adam", d.gen_lr / max(1, int(n_devices)),
                              _no_schedule, cfg.TRAIN.clip, layout=gen_layout)
-    dis_opt = FusedOptimizer("adam", d.CNN.learning_rate, _no_schedule,
-                             cfg.TRAIN.clip, layout=dis_layout)
+    if d.type == "bert":
+        dis_opt = FusedOptimizer(
+            "adamw", d.BERT.learning_rate, _no_schedule, cfg.TRAIN.clip,
+            d.BERT.weight_decay, layout=dis_layout, eps=d.BERT.adam_epsilon,
+            decay_mask=dis_layout.mask(gan_decay_mask), trainable=trainable)
+    else:
+        dis_opt = FusedOptimizer("adam", d.CNN.learning_rate, _no_schedule,
+                                 cfg.TRAIN.clip, layout=dis_layout)
     return gen_opt, gen_sched, dis_opt, dis_sched
