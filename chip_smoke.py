@@ -61,7 +61,21 @@ Phases, one line each; any failure exits non-zero:
    over their span and over the traced call). The reverse chain: bf16 K6
    and K7 (n 59, B 64, M 64) beside the fp32 chain, the on-card reference,
    K6's streaming floor beside its bound, one K6 and one K7 call traced
-   (profile_chain) for launches a token and the busy share.
+   (profile_chain) for launches a token and the busy share;
+8. PPO and the quality metrics: K3 on the metrics' gumbel-argmax route
+   (same_length off) against its plain version at B 8, 16 and 32, M 2048,
+   counts 0, 32 and 2016 (kernels.generate_gumbel); the training CLI on
+   experiment_spanbert.yml under ppo (dis_D a second BERT from the MLM
+   checkpoint), 3 steps and a restart (main_path.ppo), and the fp32 PPO
+   update (dis, classifier, gen) of the card's kernel path against the
+   CPU's plain path (check.ppo_update); the training CLI's eval with BLEU,
+   self-BLEU and the classifier on at gen_seq_len 2048 (64 / 256 / 64
+   samples; main_path.metrics) and bert_score's CLI on generated pieces
+   (main_path.bert_score); then the PPO phases' ms, kernel and plain path
+   in turns (numbers.gan_ppo), and the metrics' generated tokens/s by wave
+   width, K3's gumbel chunk against its plain version and bound, the eval's
+   seconds by part and at the shipped 640 / 2560 / 256 samples
+   (numbers.metrics).
 
 The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -195,6 +209,7 @@ def main() -> None:
               "K7": kc.chain_bwd_launches_per_token(6, True)})
     chain_errs = check_chain(kc)
     span_errs = check_spanbert_shapes(kc)
+    gumbel_errs = check_generate_gumbel(kc)
     torch.cuda.synchronize()
 
     # 4. main path, generation, through the CLI
@@ -227,11 +242,23 @@ def main() -> None:
         fail("kernel path and CPU plain path disagree on the spanbert GAN "
              "updates")
 
-    # 7. numbers
+    # 8. main path, PPO at the spanbert op-point, and the quality metrics
+    ppo_launches = run_ppo_path(_native, mle_run, bert_ckpt)
+    ppo_ref = kc.check_gan_reference(**ppo_case(bert_ckpt))
+    phase("check.ppo_update", **ppo_ref)
+    if not ppo_ref["ok"]:
+        fail("kernel path and CPU plain path disagree on the PPO updates")
+    metrics_launches, pieces, metrics_res = run_metrics_path(
+        _native, mle_run, bert_ckpt)
+    run_bert_score(pieces, bert_ckpt)
+
+    # 9. numbers
     numbers = measure(kc, card)
     numbers.update(measure_train(kc, card))
     numbers.update(measure_gan(kc, card))
     numbers.update(measure_gan_bert(kc, card, bert_ckpt))
+    measure_gan_ppo(kc, card, bert_ckpt)
+    numbers.update(measure_metrics(kc, card, mle_run, metrics_res))
     measure_bert_pretrain(card)
     trace = numbers["traces"]["K4"]
     numbers["K4_tc"].update(
@@ -239,7 +266,8 @@ def main() -> None:
         busy_share_traced=trace["busy_share"],
         busy_share_call_traced=trace["busy_share_call"])
     paths = {"generate": summaries["launches"], "train": train_launches,
-             "gan": gan_launches, "gan_bert": span_launches}
+             "gan": gan_launches, "gan_bert": span_launches,
+             "ppo": ppo_launches, "metrics": metrics_launches}
     launches = {k: sum(p[k] for p in paths.values()) for k in _native.LAUNCHES}
     by_path = {k: {n: p[k] for n, p in paths.items()} for k in _native.LAUNCHES}
 
@@ -351,7 +379,8 @@ def main() -> None:
               numbers["K5_tc"]),
     ]
     # the spanbert op-point's shapes (B 32, M 128; the MLE step at B 32 a
-    # batch chunk), launches from the spanbert GAN runs alone
+    # batch chunk), launches from the spanbert GAN runs alone; the PPO run
+    # (the same shapes) counts its own under launches_by_path["ppo"]
     for name, source, replaces, key, err, num in (
             ("decode_chunk_tc (K4)", "decode_chain_tc.cuh",
              "transformer_gan_tpu/ops/pallas_decode.py:359", "decode_chunk_tc",
@@ -374,6 +403,12 @@ def main() -> None:
         kernels.append(entry(f"{name} at the spanbert op-point", source,
                              replaces, key, *worst([span_errs[err]]),
                              numbers[num], path="gan_bert"))
+    # the metrics' generation: K3's gumbel route at B 32, M 2048
+    kernels.append(entry(
+        "generate_chunk_tc (K3, gumbel-argmax at the metrics op-point)",
+        "decode_chain_tc.cuh", "transformer_gan_tpu/ops/pallas_generate.py:105",
+        "generate_chunk_tc", gumbel_errs["float32"], gumbel_errs["bfloat16"],
+        numbers["gen_gumbel"], path="metrics"))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1179,12 +1214,13 @@ GAN_RUNS = (
 
 
 def _gan_cli_runs(_native, label: str, base: str, overrides: dict,
-                  disc: dict, warm: str, check=None) -> tuple[dict, dict]:
+                  disc: dict, warm: str, check=None,
+                  runs=GAN_RUNS) -> tuple[dict, dict]:
     """The training CLI on config ``base`` with ``overrides`` (TRAIN),
-    ``disc`` (DISCRIMINATOR) and the warm start ``warm``, twice (GAN_RUNS):
-    the chunk sampler and the reverse chain on the residuals (K4, K6), then
-    --restart for one more step; the per-token sampler and the recomputing
-    chain (K5, K7). Each run must launch its kernels, log gen and dis
+    ``disc`` (DISCRIMINATOR) and the warm start ``warm``, once for each of
+    ``runs`` (GAN_RUNS: the chunk sampler and the reverse chain on the
+    residuals (K4, K6), then --restart for one more step; the per-token
+    sampler and the recomputing chain (K5, K7)). Each run must launch its kernels, log gen and dis
     losses and checkpoint the GAN state; ``check(trainer, name)`` adds a
     run's own checks and returns what it read. Returns (launch counts
     summed over the runs, the runs' records)."""
@@ -1194,8 +1230,8 @@ def _gan_cli_runs(_native, label: str, base: str, overrides: dict,
     os.makedirs(work, exist_ok=True)
     data = os.path.join(ROOT, "build", "chip_smoke", "train", "data")
     total = dict.fromkeys(_native.LAUNCHES, 0)
-    runs = {}
-    for name, tpu, env, need in GAN_RUNS:
+    records = {}
+    for name, tpu, env, need in runs:
         cfg = _train_cfg_file(work, f"{name}.yml", base, **overrides,
                               load_from_previous=warm, DISCRIMINATOR=disc,
                               TPU=tpu)
@@ -1247,15 +1283,15 @@ def _gan_cli_runs(_native, label: str, base: str, overrides: dict,
             fail(f"the {label} run {name} logged no gen / dis losses: {log}")
         if ckpt.load_gan_payload(tr.work_dir, "checkpoint_last") is None:
             fail(f"the {label} run {name} checkpointed no GAN state")
-        runs[name] = {"run_dir": os.path.relpath(tr.work_dir, ROOT),
-                      "steps": tr.train_step_num, "wall_s": wall,
-                      "launches": launches, "log": log,
-                      "dis_updates": tr.gan.dis_opt_state.count,
-                      "gen_updates": tr.gan.gen_opt_state.count,
-                      "checked": checked, "restart": restart}
+        records[name] = {"run_dir": os.path.relpath(tr.work_dir, ROOT),
+                         "steps": tr.train_step_num, "wall_s": wall,
+                         "launches": launches, "log": log,
+                         "dis_updates": tr.gan.dis_opt_state.count,
+                         "gen_updates": tr.gan.gen_opt_state.count,
+                         "checked": checked, "restart": restart}
         for k in total:
             total[k] += launches[k]
-    return total, runs
+    return total, records
 
 
 def run_gan_path(_native, mle_run: str) -> dict:
@@ -1686,6 +1722,363 @@ def measure_bert_pretrain(card: str) -> None:
           rows=tr.batch_size, block=tr.block_size, ms_per_step=ms,
           tokens_per_s=tokens / (ms / 1e3), loss=float(loss),
           peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+
+# ---------------------------------------------------------------------------
+# PPO at the spanbert op-point and the quality metrics
+# ---------------------------------------------------------------------------
+
+# experiment_spanbert.yml under DISCRIMINATOR.BERT.loss_type ppo (PPO's
+# defaults: dis_D a second 5 x 768 BERT grafted from the same MLM
+# checkpoint, clip 0.4, P0 every 20 steps): the gen phase adds one
+# classifier update, a forward-only sampling pass (K4) and dis_D's forward
+# and backward a micro-batch, and dis_D's scoring of every fake chunk.
+PPO_BERT = {"loss_type": "ppo"}
+# The metrics' op-point: the baseline model samples 2048-token pieces from
+# <S> on a 2048-slot ring (count 0 -> 2047) with gumbel-argmax, K3's
+# "gumbel" technique without same_length, in waves of up to 32 lanes; the
+# sample counts cut from the shipped 640 / 2560 / 256 to multiples of the
+# wave.
+METRICS_SEQ = 2048
+METRICS_WAVES = (8, 16, 32)
+METRICS_COUNTS = (0, 32, METRICS_SEQ - 32)
+METRICS_SAMPLES = {"bleu_num_samples": 64, "self_bleu_num_samples": 256,
+                   "gen_num_samples": 64}
+SHIPPED_SAMPLES = {"bleu_num_samples": 640, "self_bleu_num_samples": 2560,
+                   "gen_num_samples": 256}
+
+
+def ppo_case(bert_ckpt: str) -> dict:
+    """kernel_check.GanCase's arguments for the spanbert config under ppo
+    with the smoke's MLM checkpoint as the critic and dis_D."""
+    case = spanbert_case(bert_ckpt)
+    case["overrides"]["DISCRIMINATOR"]["BERT"].update(PPO_BERT)
+    return case
+
+
+def check_generate_gumbel(kc) -> dict:
+    """K3 on the metrics' route (gumbel-argmax, same_length off) against its
+    plain version at B 8, 16 and 32, M 2048, counts 0, 32 and 2016 (the
+    first chunk on an empty ring, the last on a full one), a 32-token chunk
+    then a 31-token one (2047 = 63 x 32 + 31): fp32 ids identical, bf16 by
+    the first step's logits within LOGIT_ULPS_BF16 of the split and the
+    unsplit plain versions (the ids up to the first divergence)."""
+    errs, cases = {}, []
+    for dtype in ("float32", "bfloat16"):
+        for B in METRICS_WAVES:
+            for count in METRICS_COUNTS:
+                res = kc.check_generate(dtype, B, count, chunks=(32, 31),
+                                        M=METRICS_SEQ, technique="gumbel",
+                                        same_length=False)
+                cases.append({k: res[k] for k in ("dtype", "B", "count", "ok",
+                                                  "max_abs_err")}
+                             | {"chunks": [{k: c[k] for k in c if k != "count"}
+                                           for c in res["chunks"]]})
+                if not res["ok"]:
+                    fail(f"K3 disagrees on the gumbel route: {res}")
+                errs[dtype] = max(errs.get(dtype, 0.0), res["max_abs_err"])
+        torch.cuda.empty_cache()
+    phase("kernels.generate_gumbel", M=METRICS_SEQ, technique="gumbel",
+          same_length=False, cases=cases, max_abs_err=errs)
+    return errs
+
+
+def run_ppo_path(_native, mle_run: str, bert_ckpt: str) -> dict:
+    """The training CLI on experiment_spanbert.yml under ppo at the op-point
+    (batch 128, warm start from the MLE run, the critic and dis_D from the
+    MLM checkpoint, GAN phases from step 1), 3 steps and --restart for a
+    4th (K4, K6, K1f / K1b). Each run: the critic's trunk bitwise the
+    checkpoint's, dis_D's leaves moved (its embeddings and all its layers;
+    nothing of it is frozen), the classifier updated once a gen phase.
+    Returns the launch counts."""
+    from transformer_gan_torch.models import bert as bert_mod
+    from transformer_gan_torch.train import checkpoint as ckpt
+    warm = os.path.join(mle_run, "checkpoint_last")
+    disc = {"start_iter": 0, "dis_loss_freq": 1, "gen_loss_freq": 1,
+            "BERT": {"model_path": bert_ckpt, **PPO_BERT}}
+    mlm = ckpt.load_bert_params(bert_ckpt)
+
+    def check(tr, name):
+        ph = tr.gan
+        live = {k: v.detach().cpu() for k, v in ph.dis_params().items()}
+        same = all(torch.equal(live[k], mlm[k])
+                   for k in bert_mod.trunk_names(live))
+        disD = {k: v.detach().cpu() for k, v in ph.disD_params().items()}
+        moved = [k for k in bert_mod.trunk_names(disD)
+                 if not torch.equal(disD[k], mlm[k])]
+        layers_moved = {k.split(".")[1] for k in moved
+                        if k.startswith("layers.")}
+        if (not same or not ph.gcfg.ppo or ph.disD_opt.trainable is not None
+                or len(layers_moved) != ph.disD_cfg.num_hidden_layers
+                or "word_embeddings" not in moved or not ph.P0_initialized
+                or ph.disD_opt_state.count != ph.gen_opt_state.count):
+            fail(f"the PPO run {name}: critic trunk bitwise {same}, dis_D "
+                 f"moved {moved}, classifier updates "
+                 f"{ph.disD_opt_state.count}, gen updates "
+                 f"{ph.gen_opt_state.count}")
+        return {"critic_trunk_bitwise_equal": same,
+                "dis_D_trunk_leaves_moved": len(moved),
+                "dis_D_layers_moved": sorted(layers_moved),
+                "classifier_updates": ph.disD_opt_state.count,
+                "P0": [float(x) for x in ph.P0[:4]]}
+
+    total, runs = _gan_cli_runs(_native, "ppo", "experiment_spanbert.yml",
+                                SPAN_OVERRIDES, disc, warm, check=check,
+                                runs=GAN_RUNS[:1])
+    payload = ckpt.load_gan_payload(
+        os.path.join(ROOT, runs["chunk_res"]["run_dir"]), "checkpoint_last")
+    if "disD_params" not in payload or "disD_opt_state" not in payload:
+        fail("the PPO run checkpointed no dis_D")
+    phase("main_path.ppo", overrides=SPAN_OVERRIDES, discriminator=disc,
+          warm_start=os.path.relpath(warm, ROOT), **runs)
+    return total
+
+
+def run_metrics_path(_native, mle_run: str, bert_ckpt: str) -> tuple:
+    """The training CLI on the baseline config (batch 128, warm start from
+    the MLE run) for one step and an eval with BLEU, self-BLEU and the
+    classifier on at gen_seq_len 2048 (METRICS_SAMPLES; the MLM
+    checkpoint as the classifier's BERT): the eval line's scores finite,
+    self-BLEU below 1, K3 on the bf16 chain. Then 4 pieces from the
+    trained generator into npy files for bert_score. Returns (launch
+    counts, the pieces' directory, the eval's record)."""
+    import math
+    import re
+
+    import numpy as np
+    from transformer_gan_torch.cli import train as tcli
+    from transformer_gan_torch.train.loop import wave_width
+    work = os.path.join(ROOT, "build", "chip_smoke", "metrics")
+    os.makedirs(work, exist_ok=True)
+    data = os.path.join(ROOT, "build", "chip_smoke", "train", "data")
+    metrics = {"use_bleu": True, "use_self_bleu": True,
+               "gen_seq_len": METRICS_SEQ, "gen_batch_size": 128,
+               "bleu_num_samples": METRICS_SAMPLES["bleu_num_samples"],
+               "self_bleu_num_samples": METRICS_SAMPLES["self_bleu_num_samples"],
+               "CLASSIFIER": {"use_classifier": True, "gen_batch_size": 128,
+                              "gen_seq_len": METRICS_SEQ,
+                              "gen_num_samples":
+                                  METRICS_SAMPLES["gen_num_samples"],
+                              "model_path": bert_ckpt}}
+    cfg = _train_cfg_file(work, "metrics.yml", max_step=1, log_interval=1,
+                          eval_interval=1, batch_size=B_TRAIN,
+                          load_from_previous=os.path.join(mle_run,
+                                                          "checkpoint_last"),
+                          METRICS=metrics)
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    tr = tcli.main(["--data_dir", data, "--cfg", cfg, "--work_dir",
+                    os.path.join(work, "run")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+    with open(os.path.join(tr.work_dir, "train_rank0.log")) as f:
+        line = [l for l in f.read().splitlines() if "Eval step" in l][0]
+    bleu, self_bleu = ([float(x) for x in re.search(
+        rf" {k}=\[([^\]]*)\]", line)[1].split(",")]
+        for k in ("bleu", "self_bleu"))
+    acc = float(line.split("class_acc=")[1])
+    res = {"run_dir": os.path.relpath(tr.work_dir, ROOT), "wall_s": wall,
+           "samples": METRICS_SAMPLES, "gen_seq_len": METRICS_SEQ,
+           "wave": wave_width(METRICS_SAMPLES["bleu_num_samples"],
+                              tr.cfg.METRICS.gen_batch_size),
+           "generation_calls": tr._gen_wave,
+           "bleu": bleu, "self_bleu": self_bleu, "classifier_accuracy": acc,
+           "timing": tr.metrics_timing, "launches": launches}
+    phase("main_path.metrics", **res)
+    if (not all(math.isfinite(x) for x in bleu + self_bleu + [acc])
+            or not all(x < 1.0 for x in self_bleu) or not 0 <= acc <= 1
+            or launches["generate_chunk_tc"] == 0):
+        fail(f"the metrics eval: {res}")
+    pieces = os.path.join(work, "pieces")
+    os.makedirs(pieces, exist_ok=True)
+    for i, piece in enumerate(tr._generate_tokens(4, 128, METRICS_SEQ)):
+        np.save(os.path.join(pieces, f"{i:03d}.npy"), piece.astype(np.int32))
+    return launches, pieces, res
+
+
+def run_bert_score(pieces: str, bert_ckpt: str) -> dict:
+    """``python -m transformer_gan_torch.metrics.bert_score`` on the
+    generated pieces with the MLM checkpoint: a finite negative mean."""
+    import math
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "transformer_gan_torch.metrics.bert_score",
+         "--model_path", bert_ckpt, "--input_dir", pieces],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    res = {"rc": out.returncode, "wall_s": wall, "output": lines[-5:],
+           "stderr": out.stderr[-2000:] if out.returncode else ""}
+    phase("main_path.bert_score", **res)
+    mean = (float(lines[-1].rsplit(":", 1)[1])
+            if out.returncode == 0 and lines else float("nan"))
+    if not (math.isfinite(mean) and mean < 0 and "over 4 files" in lines[-1]):
+        fail(f"bert_score on the generated pieces: {res}")
+    res["mean"] = mean
+    return res
+
+
+def measure_gan_ppo(kc, card: str, bert_ckpt: str) -> dict:
+    """bf16 at the spanbert op-point under ppo (B 128 in 4 micro-batches of
+    32, M 128): the dis phase (one update), the classifier phase (one dis_D
+    update) and the gen phase (the classifier phase and the generator's
+    update, off P0's frequency) in ms, kernel path against plain path in
+    turns (plain, kernel, kernel, plain) after a kernel-path warm-up."""
+    cases = {r: kc.GanCase("bfloat16", 128, "cuda", route=r, host_draws=False,
+                           **ppo_case(bert_ckpt))
+             for r in ("plain", "kernel")}
+    for case in cases.values():        # time gen phases off P0's frequency
+        case.phases.P0_initialized = True
+
+    def phase_s(route, which):
+        ph = cases[route].phases
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "clf":
+            ph.classifier_phase(ph._next_dis_batch())
+        else:
+            getattr(ph, which + "_phase")(1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for which in ("dis", "clf", "gen"):
+        phase_s("kernel", which)
+    timed = {}
+    for which in ("dis", "clf", "gen"):
+        turns = [phase_s(r, which) for r in ("plain", "kernel", "kernel",
+                                             "plain")]
+        timed[which] = {"kernel_ms": (turns[1] + turns[2]) / 2 * 1e3,
+                        "plain_ms": (turns[0] + turns[3]) / 2 * 1e3,
+                        "turns_s": turns}
+    phase("numbers.gan_ppo", B=128, lanes=B_SPAN, M=SPAN_MEM,
+          dtype="bfloat16", card=card, dis_phase=timed["dis"],
+          classifier_phase=timed["clf"], gen_phase=timed["gen"])
+    del cases
+    torch.cuda.empty_cache()
+    return timed
+
+
+def measure_metrics(kc, card: str, mle_run: str, eval_res: dict) -> dict:
+    """The metrics' generation in bf16 on the MLE run's generator: generated
+    tokens/s of one 2048-token piece a wave at 1, 2, 4, 8, 16 and 32 lanes
+    (host clock ending in a sync, after a warm-up); K3 on the gumbel route,
+    a 32-token chunk at B 32, M 2048 on a full ring, against its plain
+    version in turns, beside its bound; the eval's seconds by part
+    (main_path.metrics) and the same at the shipped 640 / 2560 / 256
+    samples: generation and the classifier's features and SVM scaled by the
+    samples (the features and the SVM by their blocks), BLEU and self-BLEU
+    timed on the eval's pieces tiled to the shipped counts."""
+    import random
+
+    import numpy as np
+    from transformer_gan_torch.config import training_config
+    from transformer_gan_torch.infer import sample as sampling
+    from transformer_gan_torch.metrics.bleu import BLEU
+    from transformer_gan_torch.models import xl
+    from transformer_gan_torch.train import checkpoint as ckpt
+    cfg = training_config(os.path.join(ROOT, "training_config",
+                                       "experiment_baseline.yml"))
+    xcfg = xl.XLConfig.from_cfg(cfg, 310)
+    params, _, _ = ckpt.load_checkpoint(mle_run, "checkpoint_last", "cuda:0")
+    gen = torch.Generator(device="cuda:0").manual_seed(3)
+
+    def piece_s(B):
+        mems = xl.init_mems(xcfg, METRICS_SEQ, B, device="cuda:0")
+        first = torch.zeros((B,), dtype=torch.int64, device="cuda:0")
+        g = sampling.gumbel_draws(METRICS_SEQ - 1, B, 310, gen, "cuda:0")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = sampling.generate_tokens_gumbel(params, xcfg, METRICS_SEQ,
+                                               first, mems, g)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, toks
+
+    piece_s(1)                                  # warm-up
+    widths = {}
+    for B in (1, 2, 4, 8, 16, 32):
+        sec, toks = piece_s(B)
+        widths[B] = {"s_per_piece": sec, "tokens_per_s":
+                     B * (METRICS_SEQ - 1) / sec,
+                     "distinct_pieces": len({tuple(r) for r in
+                                             toks.T.cpu().tolist()})}
+    fastest = max(widths, key=lambda b: widths[b]["tokens_per_s"])
+
+    case = kc.GenerateCase("bfloat16", 32, METRICS_SEQ - 32, M=METRICS_SEQ,
+                           technique="gumbel", same_length=False)
+    g = case.noise(32)
+    ms, plain_ms = kc.time_in_turns(lambda: case.run(32, g),
+                                    lambda: case.run(32, g, plain=True), 3)
+    bound, by = kc.bound_ms(*kc.sampler_work(32, 32, METRICS_SEQ,
+                                             METRICS_SEQ - 32))
+    k3 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+          "library_ms": None, "library_call": "none computes gumbel-argmax "
+          "sampling through the decoder",
+          "shape": f"32 tokens, B 32, M {METRICS_SEQ}, count "
+                   f"{METRICS_SEQ - 32}, gumbel, same_length off, bf16"}
+    del case
+
+    t = eval_res["timing"]["eval"]
+    clf = t["classifier"]
+    gen_s = (t["generate_bleu_s"] + t["generate_self_bleu_s"]
+             + t["generate_classifier_s"])
+    n_now = sum(METRICS_SAMPLES.values())
+    n_ship = sum(SHIPPED_SAMPLES.values())
+    # the classifier's blocks: train 80% of each side (at most 5000), eval
+    # the rest (at most 1000); generated pieces give 16 blocks of 128
+    real = clf["n_blocks"] - _clf_blocks(METRICS_SAMPLES["gen_num_samples"])
+    blocks_ship = real + _clf_blocks(SHIPPED_SAMPLES["gen_num_samples"])
+    scale = blocks_ship / clf["n_blocks"]
+    folder = os.path.join(ROOT, "build", "chip_smoke", "metrics", "pieces")
+    pieces = [np.load(os.path.join(folder, f)).tolist()
+              for f in sorted(os.listdir(folder))]
+    # the shipped counts of 2048-token pieces: the generated ones rotated
+    bleu_hyps = [p[k:] + p[:k] for k in range(160) for p in pieces]
+    self_hyps = [p[k:] + p[:k] for k in range(640) for p in pieces]
+    data = os.path.join(ROOT, "build", "chip_smoke", "train", "data", "valid")
+    real_text = [np.load(os.path.join(data, f)).tolist()
+                 for f in sorted(os.listdir(data))]
+    random.seed(0)
+    t0 = time.perf_counter()
+    BLEU("BLEU", test_text=bleu_hyps, real_text=real_text, gram=[2, 3, 4, 5],
+         if_use=True).get_score()
+    bleu_ship = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    BLEU("Self-BLEU", test_text=self_hyps, real_text=bleu_hyps,
+         gram=[2, 3, 4], if_use=True).get_score()
+    self_ship = time.perf_counter() - t0
+    shipped = {"generation_s": gen_s * n_ship / n_now, "bleu_s": bleu_ship,
+               "self_bleu_s": self_ship,
+               "features_s": clf["features_s"] * scale,
+               "svm_s": clf["svm_s"] * scale}
+    shipped["total_s"] = sum(shipped.values())
+    line = {"card": card, "dtype": "bfloat16", "gen_seq_len": METRICS_SEQ,
+            "wave_tokens_per_s": widths, "fastest_wave": fastest,
+            "trainer_wave": eval_res["wave"], "K3_gumbel": k3,
+            "eval_s_by_part": {"generation_s": gen_s,
+                               "bleu_s": t["bleu_s"],
+                               "self_bleu_s": t["self_bleu_s"],
+                               "features_s": clf["features_s"],
+                               "svm_s": clf["svm_s"],
+                               "classifier_blocks": clf["n_blocks"]},
+            "samples": METRICS_SAMPLES, "shipped_samples": SHIPPED_SAMPLES,
+            "shipped_eval_s_by_part": shipped,
+            "shipped_rule": "generation by samples; features and SVM by "
+                            "blocks; BLEU and self-BLEU timed on tiled pieces"}
+    phase("numbers.metrics", **line)
+    del params
+    torch.cuda.empty_cache()
+    return {"gen_gumbel": k3}
+
+
+def _clf_blocks(n_pieces: int) -> int:
+    """The classifier's generated blocks (train and eval) from
+    ``n_pieces`` 2048-token pieces in 128-token blocks."""
+    n = n_pieces * (METRICS_SEQ // 128)
+    k = int(0.8 * n)
+    return min(k, 5000) + min(n - k, 1000)
 
 
 if __name__ == "__main__":

@@ -270,17 +270,18 @@ def test_dis_losses_and_grads_match_jax(loss_type):
 
 
 def test_gan_config_refuses_unported():
-    """PPO (either discriminator's loss), the rolling cache, the raw-hidden
-    memory and an unknown discriminator raise; cnn and bert pass."""
+    """The rolling cache, the raw-hidden memory and an unknown
+    discriminator raise; cnn and bert pass, PPO (either discriminator's
+    loss) too."""
     from transformer_gan_torch.config import check_gan_config
-    for dis_type in ("cnn", "bert"):
+    for dis_type, loss in (("cnn", "rsgan"), ("bert", "wgan-gp"),
+                           ("cnn", "ppo"), ("bert", "ppo-gp")):
         cfg = training_config()
         cfg.DISCRIMINATOR.type = dis_type
+        getattr(cfg.DISCRIMINATOR, dis_type.upper()).loss_type = loss
         check_gan_config(cfg)
     for dis_type, key, value in (
             ("rnn", "DISCRIMINATOR.type", "rnn"),
-            ("cnn", "DISCRIMINATOR.CNN.loss_type", "ppo"),
-            ("bert", "DISCRIMINATOR.BERT.loss_type", "ppo-gp"),
             ("cnn", "TPU.gan_decode_cache", "rolling"),
             ("bert", "TPU.cache_kv", False)):
         cfg = training_config()

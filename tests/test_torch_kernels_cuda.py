@@ -17,7 +17,9 @@ the GAN op-point and narrower lane tiles, K5 at step 5, determinism and its
 launch counters; the bf16 reverse chain of K6 / K7 (csrc/chain_bwd_tc.cu)
 at B 72, 64, 40, 8 and 5, n 59 and 27, full and odd counts, post- and pre-norm,
 determinism and its launch counters; K4 / K5 and K6 / K7 at the spanbert
-op-point's shapes (B 32, M 128, n 59 and 64), fp32 and bf16."""
+op-point's shapes (B 32, M 128, n 59 and 64), fp32 and bf16; K3 on the
+quality metrics' gumbel-argmax route (same_length off) at B 8, 16 and 32,
+M 2048, and the metrics' generation on the card against the CPU."""
 
 import pytest
 import torch
@@ -443,3 +445,58 @@ def test_chain_kernels_at_the_spanbert_shape(cuda, dtype, n, count):
     chunk the chain takes at M 128 (KL 192)."""
     res = kc.check_chain(dtype, 32, count, 1.0, n=n, M=128)
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,count", [(8, 0), (16, 32), (32, 2016)])
+def test_generate_kernel_gumbel_route_at_the_metrics_shape(cuda, dtype, B,
+                                                           count):
+    res = kc.check_generate(dtype, B, count, chunks=(32, 31), M=2048,
+                            technique="gumbel", same_length=False)
+    assert res["ok"], res
+
+
+def test_generate_tokens_gumbel_card_matches_cpu(cuda):
+    """fp32 gumbel-argmax generation at full width (B 4, 100 tokens on a
+    48-slot ring that wraps): K3 on the card, its plain version on the CPU,
+    the same noise; ids identical."""
+    from transformer_gan_torch.infer import sample as sampling
+    from transformer_gan_torch.models import xl
+    cfg = kc.baseline_config("float32")
+    params = xl.init_xl_params(cfg, seed=2, base_init=("normal", 0.02))
+    g = sampling.gumbel_draws(99, 4, cfg.n_token,
+                              torch.Generator().manual_seed(3))
+    out = {}
+    _native.reset_launches()
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        out[dev] = sampling.generate_tokens_gumbel(
+            p, cfg, 100, torch.zeros(4, dtype=torch.long, device=dev),
+            xl.init_mems(cfg, 48, 4, device=dev), g.to(dev)).cpu()
+    assert torch.equal(out["cuda"], out["cpu"])
+    assert _native.LAUNCHES["generate_chunk"] == 4       # 99 = 3 x 32 + 3
+
+
+def test_generate_tokens_gumbel_splits_a_wide_wave_into_k3_sub_waves(cuda):
+    """A 64-lane bf16 wave at full width runs as two 32-lane sub-waves, each
+    on K3's tensor-core route (one 32-token chunk each), never on the plain
+    decode; each sub-wave's ids equal a direct 32-lane call's."""
+    from transformer_gan_torch.infer import sample as sampling
+    from transformer_gan_torch.models import xl
+    cfg = kc.baseline_config("bfloat16")
+    params = {k: v.cuda() for k, v in xl.init_xl_params(
+        cfg, seed=2, base_init=("normal", 0.02)).items()}
+    g = sampling.gumbel_draws(32, 64, cfg.n_token,
+                              torch.Generator().manual_seed(3)).cuda()
+    first = torch.zeros(64, dtype=torch.long, device="cuda")
+    mems = xl.init_mems(cfg, 64, 64, device="cuda")
+    _native.reset_launches()
+    wide = sampling.generate_tokens_gumbel(params, cfg, 33, first, mems, g)
+    assert _native.LAUNCHES["generate_chunk_tc"] == 2
+    assert _native.LAUNCHES["generate_chunk"] == 2
+    assert wide.shape == (33, 64)
+    for s in (0, 32):
+        half = sampling.generate_tokens_gumbel(
+            params, cfg, 33, first[s:s + 32],
+            xl.init_mems(cfg, 64, 32, device="cuda"), g[:, s:s + 32])
+        assert torch.equal(wide[:, s:s + 32], half)

@@ -39,7 +39,11 @@ assert not bad, bad
 assert len(names) > 20, names
 assert {"transformer_gan_torch.bert.mlm", "transformer_gan_torch.bert.tokenizer",
         "transformer_gan_torch.models.bert",
-        "transformer_gan_torch.cli.bert_pretrain"} <= set(names), names
+        "transformer_gan_torch.cli.bert_pretrain",
+        "transformer_gan_torch.metrics.bleu",
+        "transformer_gan_torch.metrics.classifier",
+        "transformer_gan_torch.metrics.bert_score"} <= set(names), names
+assert "sklearn" not in sys.modules
 print(len(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -48,9 +52,9 @@ print(len(names))
     assert out.returncode == 0, out.stderr[-3000:]
 
 
-def test_port_source_has_no_jax_import():
-    """No import statement anywhere in the port's sources or chip_smoke.py,
-    inside a function included, names jax or the JAX package."""
+def _port_imports(packages) -> tuple[list, list]:
+    """(files, imports naming one of ``packages``) over the port's sources
+    and chip_smoke.py, imports inside functions included."""
     import ast
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "transformer_gan_torch")):
@@ -67,9 +71,24 @@ def test_port_source_has_no_jax_import():
             else:
                 continue
             found += [(os.path.relpath(path, ROOT), node.lineno, m)
-                      for m in mods if m.split(".")[0] in
-                      ("jax", "jaxlib", "transformer_gan_tpu")]
+                      for m in mods if m.split(".")[0] in packages]
+    return files, found
+
+
+def test_port_source_has_no_jax_import():
+    """No import statement anywhere in the port's sources or chip_smoke.py,
+    inside a function included, names jax or the JAX package."""
+    files, found = _port_imports(("jax", "jaxlib", "transformer_gan_tpu"))
     assert len(files) > 20, files
+    assert not found, found
+
+
+def test_port_source_has_no_sklearn_import():
+    """The card's machine has no scikit-learn: the classifier metric fits
+    its SVM itself (metrics/classifier.py)."""
+    files, found = _port_imports(("sklearn", "scikit_learn"))
+    assert any(f.endswith(os.path.join("metrics", "classifier.py"))
+               for f in files)
     assert not found, found
 
 

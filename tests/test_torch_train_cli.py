@@ -128,10 +128,20 @@ def test_warm_start_and_unported_features(tmp_path, corpus):
                                               "checkpoint_last.pt"))
     live = tr.state.params()
     assert all(torch.equal(live[k].detach(), loaded[k]) for k in loaded)
-    # the BERT discriminator is ported; PPO on it is not
+    # PPO and the quality metrics are ported; remat and bf16 master
+    # parameters are not
     for over in ({"DISCRIMINATOR": {"type": "bert", "start_iter": 0,
-                                    "BERT": {"loss_type": "ppo"}}},
-                 {"METRICS": {"use_bleu": True}}, {"TPU": {"remat": True}}):
+                                    "BERT": {"loss_type": "ppo",
+                                             "random_weights": True,
+                                             "hidden_size": 24,
+                                             "num_hidden_layers": 1,
+                                             "num_attention_heads": 2,
+                                             "intermediate_size": 48}}},
+                 {"METRICS": {"use_bleu": True, "use_self_bleu": True,
+                              "CLASSIFIER": {"use_classifier": True}}}):
+        c = training_config(warm).merge(over)
+        Trainer(c, corpus, str(tmp_path / "c"), device="cpu")
+    for over in ({"TPU": {"remat": True}}, {"TPU": {"param_dtype": "bfloat16"}}):
         c = training_config(warm).merge(over)
         with pytest.raises(NotImplementedError):
             Trainer(c, corpus, str(tmp_path / "c"), device="cpu")

@@ -4,9 +4,9 @@ JAX package.
 ``transformer_gan_tpu/config.py`` holds the full training and inference
 schemas. The port's defaults cover the keys it reads (the model's shape,
 the MLE trainer's TRAIN / EVALUATE / INITIALIZER / DATASET keys, the GAN
-phases' DISCRIMINATOR / PPO keys and ``TPU.gan_*`` switches, the keys that
-must stay off because their features are not ported, and the precision
-keys under ``TPU``), each with the JAX package's default; a file may set
+phases' DISCRIMINATOR / PPO keys and ``TPU.gan_*`` switches, the quality
+metrics' METRICS keys, the keys that must stay off because their features
+are not ported, and the precision keys under ``TPU``), each with the JAX package's default; a file may set
 any other key, which is kept as it is. Values keep attribute access
 (``cfg.MODEL.num_layers``).
 
@@ -69,7 +69,12 @@ TRAINING_DEFAULTS = {
     "PPO": {"dis_D_lr": 0.00025 / 4.0, "dis_D_update_D0_freq": 20,
             "dis_D_type": "bert", "clip_param": 0.4, "dis_D_num_rep": 1},
     "METRICS": {"use_bleu": False, "use_self_bleu": False,
-                "CLASSIFIER": {"use_classifier": False}},
+                "gen_seq_len": 2048, "gen_batch_size": 128,
+                "bleu_num_samples": 640, "self_bleu_num_samples": 2560,
+                "CLASSIFIER": {"use_classifier": False, "gen_batch_size": 128,
+                               "gen_seq_len": 2048, "gen_num_samples": 256,
+                               "block_size": 128, "bert_batch_size": 20,
+                               "model_path": "../BERT/checkpoint-1969000"}},
     "TPU": {"compute_dtype": "bfloat16", "param_dtype": "float32",
             "softmax_dtype": "float32", "cache_kv": True, "remat": False,
             "profile_dir": "", "gan_parallel_chunks": False,
@@ -101,17 +106,14 @@ def is_null(value) -> bool:
 
 def check_gan_config(cfg) -> None:
     """Raise ``NotImplementedError`` for a GAN setting the port does not
-    run: a discriminator other than cnn and bert, PPO losses, the rolling
-    decode cache and the raw-hidden memory (``TPU.cache_kv`` off)."""
+    run: a discriminator other than cnn and bert, the rolling decode cache
+    and the raw-hidden memory (``TPU.cache_kv`` off)."""
     d = cfg.DISCRIMINATOR
     if is_null(d.type):
         return
     if d.type not in ("cnn", "bert"):
         raise NotImplementedError(
             f"DISCRIMINATOR.type {d.type!r} is not ported (cnn and bert are)")
-    loss_type = d.BERT.loss_type if d.type == "bert" else d.CNN.loss_type
-    if "ppo" in str(loss_type):
-        raise NotImplementedError("PPO losses are not ported yet")
     if str(cfg.TPU.gan_decode_cache) == "rolling":
         raise NotImplementedError(
             "TPU.gan_decode_cache: rolling is not ported (the port samples "

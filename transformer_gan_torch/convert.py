@@ -26,8 +26,10 @@ The optimizers' flat ``[P]`` moments are in the JAX tree's ``ravel_pytree``
 order in both packages (``train.optim.flat_names``); the GAN phases' optax
 chains (clip, Adam, scale, mutable lr, scale) keep Adam's state at index 1
 and the multiplier at index 3, the BERT critic's (the same chain inside the
-freeze's (zero, chain, zero)) at 1/1/0 and 1/3. :func:`archive_from_checkpoint` writes the
-port's checkpoint back under the same names. A BERT (MLM) checkpoint is its
+freeze's (zero, chain, zero)) at 1/1/0 and 1/3, PPO's ``dis_D`` (clip,
+Adam, scale, scale: no multiplier) its Adam state at 1 and no multiplier.
+:func:`archive_from_checkpoint` writes the port's checkpoint back under the
+same names. A BERT (MLM) checkpoint is its
 ``params`` tree and ``metadata.json`` (:func:`import_bert_archive`,
 :func:`archive_from_bert_checkpoint`); the JAX ``layers`` list becomes
 ``layers.i.name``.
@@ -82,16 +84,18 @@ def opt_state_from_archive(arrays: dict, prefix: str = "opt_state"):
 
 def adam_chain_state_from_archive(arrays: dict, prefix: str, layout):
     """A GAN phase's optax chain state as a ``FusedOptState`` over the flat
-    vector of ``layout`` (its Adam moments are trees of the parameters)."""
+    vector of ``layout`` (its Adam moments are trees of the parameters; a
+    chain without a multiplier, dis_D's, gets 1)."""
     from .train.optim import FusedOptState
     a, lr = ((MASKED_ADAM, MASKED_LR) if f"{prefix}/{MASKED_ADAM}/count" in arrays
              else (ADAM, LR))
     adam = f"{prefix}/{a}"
+    lr_key = f"{prefix}/{lr}/lr_scale"
     return FusedOptState(
         count=int(arrays[f"{adam}/count"]),
         mu=layout.flatten(tensors_from_archive(arrays, f"{adam}/mu")),
         nu=layout.flatten(tensors_from_archive(arrays, f"{adam}/nu")),
-        lr_scale=float(arrays[f"{prefix}/{lr}/lr_scale"]))
+        lr_scale=float(arrays[lr_key]) if lr_key in arrays else 1.0)
 
 
 def params_from_jax(np_tree: dict) -> dict[str, torch.Tensor]:
@@ -170,9 +174,12 @@ def archive_from_checkpoint(work_dir: str, name: str) -> dict[str, np.ndarray]:
     gan = ckpt.load_gan_payload(work_dir, name)
     if gan is None:
         return out
-    out.update(_tree_names("dis_params", gan["dis_params"]))
+    for key in ("dis_params", "disD_params"):
+        if key in gan:
+            out.update(_tree_names(key, gan[key]))
     for key, tree in (("gen_opt_state", params),
-                      ("dis_opt_state", gan["dis_params"])):
+                      ("dis_opt_state", gan["dis_params"]),
+                      ("disD_opt_state", gan.get("disD_params"))):
         if key not in gan:
             continue
         st, layout = gan[key], FlatLayout.of(tree)
@@ -183,7 +190,8 @@ def archive_from_checkpoint(work_dir: str, name: str) -> dict[str, np.ndarray]:
         for moment in ("mu", "nu"):
             out.update(_tree_names(f"{adam}/{moment}", layout.unflatten(
                 getattr(st, moment))))
-        out[f"{key}/{lr}/lr_scale"] = np.asarray(st.lr_scale, np.float32)
+        if key != "disD_opt_state":          # dis_D's chain has no multiplier
+            out[f"{key}/{lr}/lr_scale"] = np.asarray(st.lr_scale, np.float32)
     return out
 
 
@@ -210,6 +218,11 @@ def import_archive(path: str, work_dir: str, name: str | None = None,
         if any(k.startswith("dis_opt_state/") for k in arrays):
             gan["dis_opt_state"] = adam_chain_state_from_archive(
                 arrays, "dis_opt_state", FlatLayout.of(dis))
+        if any(k.startswith("disD_params/") for k in arrays):
+            disD = tensors_from_archive(arrays, "disD_params")
+            gan["disD_params"] = disD
+            gan["disD_opt_state"] = adam_chain_state_from_archive(
+                arrays, "disD_opt_state", FlatLayout.of(disD))
     os.makedirs(work_dir, exist_ok=True)
     return ckpt.save_checkpoint(work_dir, name, params,
                                 opt_state_from_archive(arrays), meta, gan=gan)

@@ -2,8 +2,9 @@
 
 Counterpart of ``transformer_gan_tpu/infer/sample.py``: prefix priming in
 windows of batch forwards, single-step decoding for the duration-based host
-loop, and fixed-length generation in chunks (the fused sampling kernel for
-top-k / random, the plain chunked decode for nucleus).
+loop, fixed-length generation in chunks (the fused sampling kernel for
+top-k / random, the plain chunked decode for nucleus), and the quality
+metrics' gumbel-argmax generation (:func:`generate_tokens_gumbel`).
 
 Random numbers: every sampling function takes the gumbel noise ``g`` as an
 input. :func:`gumbel_noise` draws it from an explicit ``torch.Generator``;
@@ -171,8 +172,21 @@ def sample_scan(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
             same_length=True)
         return tokens, xl.XLMems(hids=hids, count=count)
 
+    tokens, state = _chunked_sample_loop(params, xcfg, scfg, first_token,
+                                         mems, length, g_all, same_length=True)
+    return tokens, xl.mems_from_decode_state(xcfg, state)
+
+
+def _chunked_sample_loop(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
+                         first_token, mems: xl.XLMems, length: int, g_all, *,
+                         same_length: bool):
+    """The plain chunked decode: ``length`` tokens, one ``decode_chunk_step``
+    each, the staged rows merged once a chunk. Returns (tokens [length,
+    bsz], decode state)."""
+    bsz = first_token.shape[0]
+    C = min(DECODE_CHUNK, length, mems.hids.shape[4])
     state = xl.decode_state_from_mems(params, xcfg, mems)
-    token, empty_run = first_token, empty0
+    token, empty_run = first_token, torch.zeros_like(first_token)
     pieces = []
     for s in range(0, length, C):
         n = min(C, length - s)
@@ -180,12 +194,69 @@ def sample_scan(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
                                      device=first_token.device)
         for t in range(n):
             logits, stage = xl.decode_chunk_step(params, xcfg, token, state,
-                                                 stage, t, same_length=True)
+                                                 stage, t,
+                                                 same_length=same_length)
             token = _filter_and_sample(logits, scfg, empty_run, g_all[s + t])
             empty_run = _next_empty(token, empty_run, scfg)
             pieces.append(token)
         state = xl.merge_decode_state(xcfg, state, stage, n)
-    return torch.stack(pieces), xl.mems_from_decode_state(xcfg, state)
+    return torch.stack(pieces), state
+
+
+# The metrics' sampler: argmax of l + g, no temperature, no logit surgery
+# (K3's "gumbel" technique)
+GUMBEL_ARGMAX = SamplingConfig(technique="gumbel", temperature=1.0,
+                               exclude_bos=False, num_empty_to_ignore=0)
+
+
+def gumbel_draws(length: int, bsz: int, V: int, generator: torch.Generator,
+                 device=None) -> torch.Tensor:
+    """[length, bsz, V] fp32 noise of :func:`generate_tokens_gumbel`, from
+    [1, bsz, V] uniforms a step: -log(-log(u + 1e-20) + 1e-20), the JAX
+    package's straight-through gumbel draw (``models.gan.gumbel``)."""
+    from ..models.gan import gumbel
+    return gumbel(torch.rand((length, 1, bsz, V), generator=generator,
+                             dtype=torch.float32, device=device)[:, 0])
+
+
+@torch.no_grad()
+def generate_tokens_gumbel(params, xcfg: xl.XLConfig, seq_len: int,
+                           first_token: torch.Tensor, mems: xl.XLMems,
+                           g_all: torch.Tensor) -> torch.Tensor:
+    """Gumbel-argmax generation of the quality metrics (reference
+    generate_tokens): ``seq_len - 1`` tokens after ``first_token`` [bsz],
+    each the argmax of its logits plus ``g_all`` [seq_len - 1, bsz, V]
+    (:func:`gumbel_draws`; a positive temperature does not move the
+    argmax), on the chunked memory ``mems`` with same_length off, on K3's
+    gumbel technique (its plain version for CPU tensors). A wave wider than
+    ``ops.generate.MAX_LANES`` runs as sub-waves of at most that many
+    lanes; on the CPU a model K3 does not take (note-status inputs) runs
+    the plain chunked decode, on the card it raises ValueError. Returns
+    the tokens [seq_len, bsz], ``first_token`` first."""
+    length = seq_len - 1
+    if length <= 0:
+        return first_token[None]
+    bsz = first_token.shape[0]
+    W = gen_ops.MAX_LANES
+    if bsz > W:
+        return torch.cat([generate_tokens_gumbel(
+            params, xcfg, seq_len, first_token[s:s + W],
+            xl.XLMems(hids=mems.hids[:, :, :, s:s + W], count=mems.count),
+            g_all[:, s:s + W]) for s in range(0, bsz, W)], dim=1)
+    C = min(DECODE_CHUNK, length, mems.hids.shape[4])
+    if gen_ops.supports_fused_generate(xcfg, GUMBEL_ARGMAX, bsz, C):
+        tokens, _, _ = _fused_sample_loop(
+            params, xcfg, GUMBEL_ARGMAX, first_token, mems, length, g_all,
+            torch.zeros_like(first_token), same_length=False)
+    elif mems.hids.device.type == "cpu":
+        tokens, _ = _chunked_sample_loop(params, xcfg, GUMBEL_ARGMAX,
+                                         first_token, mems, length, g_all,
+                                         same_length=False)
+    else:
+        raise ValueError(
+            "K3 does not take this model (note-status inputs): "
+            "generate_tokens_gumbel runs it on the CPU only")
+    return torch.cat([first_token[None].to(tokens.dtype), tokens])
 
 
 @torch.no_grad()

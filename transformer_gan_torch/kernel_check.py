@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from .infer.sample import SamplingConfig, gumbel_noise
+from .infer.sample import GUMBEL_ARGMAX, SamplingConfig, gumbel_noise
 from .models import gan as gan_mod
 from .models import xl
 from .ops import attention as attn_ops
@@ -285,13 +285,19 @@ class TrainCase:
 # ---------------------------------------------------------------------------
 
 class GenerateCase:
-    """Seeded full-width operands of ``fused_generate_chunk``."""
+    """Seeded full-width operands of ``fused_generate_chunk``: the
+    inference configs' top-k 32 at T 0.95 with same_length, or with
+    ``technique`` "gumbel" the metrics' sampler (``infer.sample
+    .GUMBEL_ARGMAX``) with ``same_length`` off."""
 
     def __init__(self, dtype: str, B: int, count: int, M: int = MEM_LEN,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", technique: str = "topk",
+                 same_length: bool = True):
         self.cfg = baseline_config(dtype)
-        self.scfg = SamplingConfig(technique="topk", topk=32,
-                                   temperature=0.95)
+        self.scfg = (GUMBEL_ARGMAX if technique == "gumbel" else
+                     SamplingConfig(technique=technique, topk=32,
+                                    temperature=0.95))
+        self.same_length = same_length
         cfg, cd = self.cfg, self.cfg.cdtype
         params = {k: v.to(device) for k, v in xl.init_xl_params(
             cfg, seed, base_init=("normal", 0.02)).items()}
@@ -323,11 +329,11 @@ class GenerateCase:
         if plain:
             return gen_ops.fused_generate_chunk_plain(
                 self.stacked, self.cfg, self.scfg, self.kv, self.R, self.ids,
-                self.er, g, self.count, n, same_length=True,
+                self.er, g, self.count, n, same_length=self.same_length,
                 return_logits=return_logits, splits=splits)
         return gen_ops.fused_generate_chunk(
             self.stacked, self.cfg, self.scfg, self.kv, self.R, self.ids,
-            self.er, g, self.count, n, same_length=True,
+            self.er, g, self.count, n, same_length=self.same_length,
             return_logits=return_logits)
 
     def advance(self, out, n: int) -> None:
@@ -358,9 +364,12 @@ def check_generate(dtype: str, B: int, count: int, chunks=(32, 7),
     state; each chunk run by the kernel and by the plain version on the
     same operands and noise. bf16 (the split-key chain) is held against
     the plain version with the kernel's splits and against the unsplit one,
-    each within LOGIT_ULPS_BF16 on the first step's logits."""
+    each within LOGIT_ULPS_BF16 on the first step's logits. ``kw``:
+    :class:`GenerateCase`'s (``technique``, ``same_length``, ``M``)."""
     case = GenerateCase(dtype, B, count, **kw)
-    res = {"dtype": dtype, "B": B, "count": count, "chunks": []}
+    res = {"dtype": dtype, "B": B, "count": count,
+           "technique": case.scfg.technique,
+           "same_length": case.same_length, "chunks": []}
     ok = True
     for n in chunks:
         g = case.noise(n)
@@ -743,24 +752,160 @@ class GanCase:
 # coin toss: moves within lr x 1e-3 but for at most 1e-3 of the weights,
 # each within 2 lr (the H100 read 1.75e-4 of the discriminator's weights
 # beyond).
+# A FF unit whose pre-activation the card and the CPU put on two sides of
+# its ReLU's kink for some token of the gen update's window pass takes that
+# token's cotangent on one side only: both are gradients of the same loss
+# (a ReLU has two slopes at its kink), and they differ beyond any rounding,
+# in that unit's weights and, through the token's cotangent, in every
+# earlier layer (PPO's fp32 update on an H100 read 3.8e-4 for
+# layers.5.ff_w1 from two such units, and 8.4e-5 for layers.2.r_w with
+# those units' weights left out; the card's plain route read the same, its
+# kernels 1.3e-6 from it). So where the CPU's own pre-activation lies
+# within ``kink_band`` of its row's largest |pre-activation| of zero, the
+# CPU's gen update takes the card's ReLU decision (:class:`_FFPre`
+# replaying the card's record); every other unit keeps its own, and a sign
+# that differs outside the band fails the check (a rounding difference
+# cannot put it there). The units replayed are reported, at most
+# ``kink_units`` of them, with the largest |pre-activation| among them and
+# the largest card-to-CPU difference of any pre-activation ("spread"), all
+# relative to the row. The band, 2^-17 of the row (64 fp32 ulps), sits 6x
+# above the largest spread an H100 read in the cnn, spanbert and PPO
+# updates (1.06e-6 to 1.23e-6) and 500x above the units it replayed (at
+# most 1.5e-7). The control of the rule plants a fault on the card: the
+# window pass's K/V memory rounded to bf16 (``plant``), read against the
+# CPU's record by the same rule (the H100 read a spread of 4.1e-4, 51 to
+# 182 differing units, gen leaves 1.1e-2 to 6.5e-2 off).
 GAN_REF_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-5, "grad_leaf_rel": 5e-5,
-               "leaf_floor": 1e-6, "move_rel": 1e-3, "flip_share": 1e-3}
+               "leaf_floor": 1e-6, "move_rel": 1e-3, "flip_share": 1e-3,
+               "kink_units": 8, "kink_band": 2.0 ** -17}
 
 
-def _gan_update(dtype: str, B: int, device, **case_kw) -> dict:
-    """One dis and one gen update of :class:`GanCase`: logged losses, each
-    phase's flat gradient and parameter move, layouts and base lrs."""
+def _row_rel(x: torch.Tensor) -> torch.Tensor:
+    """|x| over its row's largest |x| (the last axis)."""
+    scale = x.abs().amax(-1, keepdim=True)
+    return x.abs() / torch.where(scale > 0, scale, torch.ones_like(scale))
+
+
+class _FFPre:
+    """Records the FF pre-activations (the inputs of the window pass's L
+    ReLUs, [L, n, b, d_inner] fp32 on the CPU) of every window pass that the
+    gen update differentiates in its parameters (``xl
+    .decode_recompute_window`` under grad with live parameters: not the
+    plain chain's detached single-token passes), in call order, without
+    changing the pass. ``replay``: another run's record; a ReLU whose own
+    pre-activation lies within ``band`` of zero (:func:`_row_rel`) takes the
+    recorded decision, every other its own. ``plant``: the pass reads its
+    K/V memory rounded to bf16 (the control's planted fault)."""
+
+    def __init__(self, replay=None, band: float = 0.0, plant: bool = False):
+        self.replay, self.band, self.plant = replay, band, plant
+
+    def __enter__(self):
+        self.pre, orig = [], xl.decode_recompute_window
+        self._orig = orig
+
+        def window(params, cfg, inp, k_mem, v_mem, *args, **kw):
+            if not (torch.is_grad_enabled()
+                    and any(v.requires_grad for v in params.values())):
+                return orig(params, cfg, inp, k_mem, v_mem, *args, **kw)
+            if self.plant:
+                k_mem, v_mem = (t.bfloat16().to(t.dtype) for t in (k_mem,
+                                                                    v_mem))
+            card = None if self.replay is None else self.replay[len(self.pre)]
+            pre, relu = [], torch.relu
+
+            def decided(x):
+                own = x.detach().float().cpu()
+                pre.append(own)
+                if card is None:
+                    return relu(x)
+                rec = card[len(pre) - 1]
+                if rec.shape != own.shape:
+                    raise ValueError(f"ReLU record {tuple(rec.shape)} for "
+                                     f"pre-activations {tuple(own.shape)}")
+                keep = torch.where(_row_rel(own) <= self.band, rec > 0,
+                                   own > 0)
+                return torch.where(keep.to(x.device), x, torch.zeros(
+                    (), dtype=x.dtype, device=x.device))
+
+            torch.relu = decided
+            try:
+                out = orig(params, cfg, inp, k_mem, v_mem, *args, **kw)
+            finally:
+                torch.relu = relu
+            if card is not None and len(pre) != card.shape[0]:
+                raise ValueError(f"{len(pre)} ReLUs for {card.shape[0]} "
+                                 "layers")
+            self.pre.append(torch.stack(pre))
+            return out
+
+        xl.decode_recompute_window = window
+        return self
+
+    def __exit__(self, *exc):
+        xl.decode_recompute_window = self._orig
+
+
+def kink_stats(card, own, band: float) -> dict:
+    """The kink rule over two runs' records (:class:`_FFPre`): the (layer,
+    unit) pairs whose sign differs within ``band`` of zero for some token
+    and lane ("kink_units", the ones the CPU replays), the largest own
+    |pre-activation| among them ("kink_max_rel"), the count of sign
+    differences outside the band ("kink_outside"), and the largest
+    difference of any pre-activation ("ff_pre_spread"), all relative to
+    the row's largest |pre-activation|."""
+    if len(card) != len(own):
+        raise ValueError("the two gen updates made different window passes")
+    units, max_rel, outside, spread = set(), 0.0, 0, 0.0
+    for c, o in zip(card, own):
+        if c.shape != o.shape:
+            raise ValueError(f"records {tuple(c.shape)} and {tuple(o.shape)}")
+        rel = _row_rel(o)
+        scale = o.abs().amax(-1, keepdim=True)
+        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+        spread = max(spread, float(((c - o).abs() / scale).max()))
+        flip = (c > 0) != (o > 0)
+        near = flip & (rel <= band)
+        outside += int((flip & ~near).sum())
+        if near.any():
+            max_rel = max(max_rel, float(rel[near].max()))
+        units.update(map(tuple, near.flatten(1, -2).any(1).nonzero()
+                         .tolist()))
+    return {"kink_units": sorted(units), "kink_max_rel": max_rel,
+            "kink_outside": outside, "ff_pre_spread": spread}
+
+
+def _gan_update(dtype: str, B: int, device, ff_pre=None, plant=False,
+                **case_kw) -> dict:
+    """One dis and one gen update of :class:`GanCase` (under PPO the gen
+    phase's classifier update too, "clf"): logged losses, each phase's flat
+    gradient and parameter move, layouts and base lrs, and the gen update's
+    FF pre-activations (``ff_pre``: another run's, whose ReLU decisions it
+    takes at its kinks; ``plant``: the control's fault; see
+    ``GAN_REF_TOL``)."""
     case = GanCase(dtype, B, device, **case_kw)
     ph = case.phases
-    dis0 = ph.dis_flat.detach().clone()
-    gen0 = case.state.flat.detach().clone()
-    grads = {"dis": ph.dis_phase(0).cpu(), "gen": ph.gen_phase(0).cpu()}
+    flats = {"dis": ph.dis_flat, "gen": case.state.flat}
+    if ph.gcfg.ppo:
+        flats["clf"] = ph.disD_flat
+    before = {k: v.detach().clone() for k, v in flats.items()}
+    grads = {"dis": ph.dis_phase(0).cpu()}
+    if ph.gcfg.ppo:                  # the gen phase's classifier update
+        classifier_phase = ph.classifier_phase
+        ph.classifier_phase = lambda data_c: grads.setdefault(
+            "clf", classifier_phase(data_c).cpu())
+    with _FFPre(replay=ff_pre, band=GAN_REF_TOL["kink_band"],
+                plant=plant) as ff:
+        grads["gen"] = ph.gen_phase(0).cpu()
     g, d = ph.pop_log_stats()
-    return {"gen_loss": g, "dis_loss": d, "grads": grads,
-            "moves": {"dis": (ph.dis_flat.detach() - dis0).cpu(),
-                      "gen": (case.state.flat.detach() - gen0).cpu()},
-            "layouts": {"dis": ph.dis_layout, "gen": case.state.layout},
-            "lr": {"dis": ph.dis_opt.base_lr, "gen": ph.gen_opt.base_lr}}
+    layouts = {"dis": ph.dis_layout, "gen": case.state.layout,
+               "clf": ph.disD_layout}
+    lrs = {"dis": ph.dis_opt.base_lr, "gen": ph.gen_opt.base_lr,
+           "clf": ph.disD_opt.base_lr if ph.gcfg.ppo else None}
+    return {"gen_loss": g, "dis_loss": d, "grads": grads, "ff_pre": ff.pre,
+            "moves": {k: (flats[k].detach() - before[k]).cpu() for k in flats},
+            "layouts": {k: layouts[k] for k in flats},
+            "lr": {k: lrs[k] for k in flats}}
 
 
 def _grad_errs(ga, gb, layout, floor) -> dict:
@@ -786,20 +931,41 @@ def _grad_errs(ga, gb, layout, floor) -> dict:
 def check_gan_reference(B: int = 8, devices=("cuda:0", "cpu"),
                         **case_kw) -> dict:
     """One dis and one gen update (fp32, the GAN op-point at batch ``B``;
-    ``case_kw``: :class:`GanCase`'s config and overrides) of the kernel
-    path on the card against the plain path on the CPU: losses, every
-    gradient leaf, the parameters' moves (``GAN_REF_TOL``). The control,
-    the same update in bf16 on the card, must read beyond the leaf limit."""
-    k, p = (_gan_update("float32", B, dev, **case_kw) for dev in devices)
-    control = _gan_update("bfloat16", B, devices[0], **case_kw)
+    ``case_kw``: :class:`GanCase`'s config and overrides; under PPO also
+    the classifier update) of the kernel path on the card against the plain
+    path on the CPU, which takes the card's ReLU decisions at the kinks of
+    the gen update's window passes (``GAN_REF_TOL``): losses, every
+    gradient leaf, the parameters' moves, the kink rule. Two controls must
+    fail: the same update in bf16 on the card (beyond the leaf limit), and
+    the fp32 one with the planted fault (by the kink rule or the leaves)."""
     tol = GAN_REF_TOL
+    k = _gan_update("float32", B, devices[0], **case_kw)
+    p = _gan_update("float32", B, devices[1], ff_pre=k["ff_pre"], **case_kw)
+    control = _gan_update("bfloat16", B, devices[0], **case_kw)
+    planted = _gan_update("float32", B, devices[0], plant=True, **case_kw)
+    kinks = kink_stats(k["ff_pre"], p["ff_pre"], tol["kink_band"])
     res = {"B": B, "tol": tol,
            "kernel_losses": {"gen": k["gen_loss"], "dis": k["dis_loss"]},
-           "plain_losses": {"gen": p["gen_loss"], "dis": p["dis_loss"]}}
+           "plain_losses": {"gen": p["gen_loss"], "dis": p["dis_loss"]},
+           **kinks}
     res["loss_rel_err"] = max(abs(k[n] - p[n]) / abs(p[n])
                               for n in ("gen_loss", "dis_loss"))
-    ok = res["loss_rel_err"] <= tol["loss_rel"]
-    for phase in ("dis", "gen"):
+    ok = (res["loss_rel_err"] <= tol["loss_rel"] and kinks["kink_outside"] == 0
+          and len(kinks["kink_units"]) <= tol["kink_units"])
+    plant_kinks = kink_stats(planted["ff_pre"], p["ff_pre"], tol["kink_band"])
+    plant_gen = _grad_errs(planted["grads"]["gen"], p["grads"]["gen"],
+                           p["layouts"]["gen"], tol["leaf_floor"])
+    res["control_planted"] = {
+        "fault": "window pass K/V memory rounded to bf16",
+        "kink_outside": plant_kinks["kink_outside"],
+        "kink_units": len(plant_kinks["kink_units"]),
+        "ff_pre_spread": plant_kinks["ff_pre_spread"],
+        "gen_grad_leaf_max_rel_err": plant_gen["grad_leaf_max_rel_err"],
+        "gen_worst_leaf": plant_gen["worst_leaf"]}
+    ok = ok and (plant_kinks["kink_outside"] > 0
+                 or len(plant_kinks["kink_units"]) > tol["kink_units"]
+                 or plant_gen["grad_leaf_max_rel_err"] > tol["grad_leaf_rel"])
+    for phase in p["grads"]:
         layout = p["layouts"][phase]
         errs = _grad_errs(k["grads"][phase], p["grads"][phase], layout,
                           tol["leaf_floor"])

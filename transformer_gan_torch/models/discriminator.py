@@ -1,4 +1,5 @@
-"""RelGAN CNN discriminator, as functions on tensors.
+"""RelGAN CNN discriminator and the vanilla CNN classifier, as functions on
+tensors.
 
 Counterpart of ``transformer_gan_tpu/models/discriminator.py``
 (``RelganConfig``, ``init_relgan_params``, ``relgan_logits``): a bias-free
@@ -9,6 +10,11 @@ representation. Parameters are a flat ``dict[str, Tensor]`` with the JAX
 tree's names (``embeddings``, ``convs.0.w``, ...), initialised bit for bit
 like the JAX package. Dropout draws from an explicit generator, or takes its
 uniform draws as an input.
+
+The vanilla CNN classifier (``CnnConfig``, ``init_cnn_params``,
+``cnn_features``, ``cnn_logits``; the reference's CNNDiscriminator /
+CNNClassifier over token ids) is kept, as in the JAX package, for the
+inventory: nothing in the port routes through it.
 """
 from __future__ import annotations
 
@@ -115,3 +121,72 @@ def relgan_logits(params, cfg: RelganConfig, inp: torch.Tensor, *,
     pred = pred @ params["feature2out_w"].to(cd) + params["feature2out_b"].to(cd)
     logits = pred @ params["out2logits_w"].to(cd) + params["out2logits_b"].to(cd)
     return logits[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Vanilla CNN classifier over token ids
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CnnConfig:
+    embed_dim: int = 64
+    vocab_size: int = 310
+    k_label: int = 2
+    dropout: float = 0.2
+    init: str = "uniform"
+    filter_sizes: tuple = DIS_FILTER_SIZES
+    num_filters: tuple = DIS_NUM_FILTERS
+    padding_idx: int = 1
+
+    @property
+    def feature_dim(self) -> int:
+        return sum(self.num_filters)
+
+
+def init_cnn_params(cfg: CnnConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    """The JAX package's draws in its order; the padding row of the
+    embeddings zeroed (``nn.Embedding(padding_idx=...)``)."""
+    rng = np.random.RandomState(seed)
+
+    def t(shape):
+        a = np.asarray(_init_array(rng, shape, cfg.init), dtype=np.float32)
+        return torch.from_numpy(a)
+
+    emb = t((cfg.vocab_size, cfg.embed_dim))
+    emb[cfg.padding_idx] = 0.0
+    params = {"embeddings": emb}
+    for i, (n, f) in enumerate(zip(cfg.num_filters, cfg.filter_sizes)):
+        params[f"convs.{i}.w"] = t((n, 1, f, cfg.embed_dim))      # OIHW
+        params[f"convs.{i}.b"] = t((n,))
+    params.update({"highway_w": t((cfg.feature_dim, cfg.feature_dim)),
+                   "highway_b": t((cfg.feature_dim,)),
+                   "feature2out_w": t((cfg.feature_dim, cfg.k_label)),
+                   "feature2out_b": t((cfg.k_label,))})
+    return params
+
+
+def cnn_features(params, cfg: CnnConfig, input_ids: torch.Tensor
+                 ) -> torch.Tensor:
+    """[bsz, seq] ids -> features [bsz, feature_dim]: convolutions over the
+    whole embedding width, max-pool over time, a highway layer."""
+    emb = params["embeddings"][input_ids][:, None]         # [bsz, 1, seq, e]
+    pools = []
+    for i in range(len(cfg.filter_sizes)):
+        out = F.conv2d(emb, params[f"convs.{i}.w"], params[f"convs.{i}.b"])
+        pools.append(torch.relu(out)[..., 0].amax(dim=2))   # [bsz, n]
+    pred = torch.cat(pools, dim=1)
+    highway = pred @ params["highway_w"] + params["highway_b"]
+    gate = torch.sigmoid(highway)
+    return gate * torch.relu(highway) + (1.0 - gate) * pred
+
+
+def cnn_logits(params, cfg: CnnConfig, input_ids: torch.Tensor, *,
+               train: bool = False,
+               dropout_u: torch.Tensor | None = None) -> torch.Tensor:
+    """[bsz, k_label] logits; with ``train`` and ``dropout_u`` (uniform
+    draws of the features' shape) dropout on the features."""
+    feat = cnn_features(params, cfg, input_ids)
+    if train and cfg.dropout > 0 and dropout_u is not None:
+        keep = dropout_u.to(feat.device) < 1.0 - cfg.dropout
+        feat = torch.where(keep, feat / (1.0 - cfg.dropout), 0.0)
+    return feat @ params["feature2out_w"] + params["feature2out_b"]

@@ -3,7 +3,7 @@ discriminator losses of one GAN batch (RelGAN CNN discriminator or BERT
 critic).
 
 Counterpart of ``transformer_gan_tpu/models/gan.py`` for ``dis_type: cnn``
-and ``bert`` (PPO is not ported):
+and ``bert``, PPO included:
 
 * context priming with no gradient; chunk 0 carries the real context
   one-hots at its head, later chunks seed from the detached last sample;
@@ -26,6 +26,15 @@ The BERT critic scores soft one-hots padded with a zero ``[MASK]`` column
 times its fp32 word embeddings, real ids through the embedding rows, both in
 one batched call; its gradient penalty takes one-hot interpolates over
 V + 1.
+
+PPO (``loss_type`` ppo / ppo-gp) replaces the fakes' scores in the
+generator's loss by a clipped surrogate: an auxiliary classifier ``dis_D``
+(a BERT on the argmax ids, or a RelGAN CNN on the one-hots) gives each row
+a ratio P1 / (D1 P0) against a snapshot P0 of its earlier odds
+(:func:`compute_P0`), clipped to 1 +- ``clip_param``
+(:func:`ppo_surrogate`); ``dis_D`` trains on real against fake by BCE
+(:func:`classifier_loss_for_batch`). Its scores are taken to fp32 before
+the sigmoid.
 
 Random numbers are inputs: a :class:`Draws` object hands out the gumbel
 noise of each sampled chunk, the discriminator's dropout draws and the
@@ -54,8 +63,8 @@ GUMBEL_EPS = 1e-20
 
 @dataclasses.dataclass(frozen=True)
 class GanConfig:
-    """Static GAN-phase parameters (from cfg.DISCRIMINATOR / cfg.TPU). The
-    port samples on the chunked decode cache only (``config.check_gan_config``
+    """Static GAN-phase parameters (from cfg.DISCRIMINATOR / cfg.PPO /
+    cfg.TPU). The port samples on the chunked decode cache only (``config.check_gan_config``
     refuses ``TPU.gan_decode_cache: rolling``)."""
 
     dis_type: str = "cnn"
@@ -68,6 +77,9 @@ class GanConfig:
     gen_loss_factor: float = 30.0
     dis_loss_factor: float = 1.0
     batch_chunk: int = 1
+    ppo: bool = False
+    ppo_dis_type: str = "bert"       # dis_D: "bert" | "cnn"
+    clip_param: float = 0.4
     n_token: int = 310
     # full-chain gen phase: "auto" / "kernel" the reverse chain on the
     # window residuals (K6), "kernel_recompute" recomputing each token's
@@ -87,8 +99,10 @@ class GanConfig:
             raise NotImplementedError(
                 f"DISCRIMINATOR.type {self.dis_type!r} is not ported (the "
                 "port runs the RelGAN CNN and the BERT critic)")
-        if "ppo" in self.loss_type:
-            raise NotImplementedError("PPO losses are not ported yet")
+        if self.ppo_dis_type not in ("bert", "cnn"):
+            raise NotImplementedError(
+                f"PPO.dis_D_type {self.ppo_dis_type!r} is not ported (bert "
+                "and cnn are)")
         if self.chain_bwd not in ("auto", "kernel", "kernel_recompute", "jnp",
                                   "off"):
             raise ValueError(f"unknown TPU.gan_chain_bwd {self.chain_bwd!r}")
@@ -128,7 +142,9 @@ class GanConfig:
             truncate_backprop=d.truncate_backprop,
             gen_loss_factor=float(d.gen_loss_factor),
             dis_loss_factor=float(d.dis_loss_factor),
-            batch_chunk=d.batch_chunk, n_token=n_token,
+            batch_chunk=d.batch_chunk, ppo="ppo" in loss_type,
+            ppo_dis_type=str(cfg.PPO.dis_D_type),
+            clip_param=float(cfg.PPO.clip_param), n_token=n_token,
             fused_sampler=str(cfg.TPU.gan_fused_decode),
             chain_bwd=str(cfg.TPU.gan_chain_bwd))
 
@@ -498,17 +514,26 @@ def chunk_gradient_penalty(dis_params, dis_cfg, gcfg: GanConfig, real_ids,
         alpha)
 
 
+def _chunk_noise(gcfg: GanConfig, draws: Draws, bsz: int) -> list:
+    return [draws.gumbel(c, n, bsz, gcfg.n_token)
+            for c, n in enumerate(gcfg.chunk_lengths())]
+
+
 def gan_losses_for_batch(gen_params, dis_params, dis_cfg, xcfg, gcfg: GanConfig,
                          data: torch.Tensor, temperature, draws: Draws, *,
-                         train_dis: bool) -> dict:
-    """Sample the fakes of one batch and score every chunk. Returns summed
-    (over chunks) gen_loss, dis_loss and gp_loss; the dis phase scores
-    detached fakes with discriminator dropout."""
-    bsz, V = data.shape[1], gcfg.n_token
-    noise = [draws.gumbel(c, n, bsz, V)
-             for c, n in enumerate(gcfg.chunk_lengths())]
+                         train_dis: bool, disD_params=None, disD_cfg=None,
+                         P0=None, update_P0: bool = False) -> dict:
+    """Sample the fakes of one batch (noise from ``draws``) and score every
+    chunk. Returns summed (over chunks) gen_loss, dis_loss and gp_loss, and
+    P0; the dis phase scores detached fakes with discriminator dropout.
+    Under PPO the gen phase scores the fakes through
+    :func:`ppo_surrogate` with ``dis_D`` (``disD_params``), and with
+    ``update_P0`` re-snapshots P0 from each chunk's fake before use; the
+    returned P0 is the last one used."""
+    bsz = data.shape[1]
     chunks = sample_fake_chunks(gen_params, xcfg, gcfg, data, temperature,
-                                noise, forward_only=train_dis)
+                                _chunk_noise(gcfg, draws, bsz),
+                                forward_only=train_dis)
     zero = torch.zeros((), dtype=torch.float32, device=data.device)
     gen_loss, dis_loss, gp_loss = zero, zero, zero
     for c, (fake, real_ids) in enumerate(chunks):
@@ -521,10 +546,91 @@ def gan_losses_for_batch(gen_params, dis_params, dis_cfg, xcfg, gcfg: GanConfig,
                 u = draws.dropout_u(c, disc_mod.dropout_shape(dis_cfg, 2 * bsz))
         d_real, d_fake = score_chunk(dis_params, dis_cfg, gcfg, real_ids, fake,
                                      train=train_dis, dropout_u=u)
+        if gcfg.ppo and not train_dis:
+            if update_P0:
+                P0 = compute_P0(disD_params, disD_cfg, gcfg, fake)
+            d_fake = ppo_surrogate(disD_params, disD_cfg, gcfg, fake, d_fake,
+                                   P0)
         g, d = get_losses(d_real, d_fake, gcfg.loss_type)
         gen_loss, dis_loss = gen_loss + g, dis_loss + d
         if train_dis and gcfg.has_gp:
             gp_loss = gp_loss + chunk_gradient_penalty(
                 dis_params, dis_cfg, gcfg, real_ids, fake,
                 draws.gp_alpha(c, bsz))
-    return {"gen_loss": gen_loss, "dis_loss": dis_loss, "gp_loss": gp_loss}
+    return {"gen_loss": gen_loss, "dis_loss": dis_loss, "gp_loss": gp_loss,
+            "P0": P0}
+
+
+# ---------------------------------------------------------------------------
+# PPO: the auxiliary classifier dis_D
+# ---------------------------------------------------------------------------
+
+def dis_D_forward(disD_params, disD_cfg, gcfg: GanConfig,
+                  chunk: torch.Tensor) -> torch.Tensor:
+    """dis_D's scores [bsz] of a chunk, [len, bsz] ids or [len, bsz, V]
+    one-hots, without dropout: the BERT on the embeddings of the ids (the
+    one-hots' argmax, which passes no gradient), or the RelGAN CNN on the
+    one-hots (which does)."""
+    data = chunk.T if chunk.ndim == 2 else chunk.transpose(0, 1)
+    if gcfg.ppo_dis_type == "bert":
+        if data.ndim == 3:
+            data = data.argmax(-1)
+        emb = disD_params["word_embeddings"][data]
+        return bert_mod.bert_discriminator_score(disD_params, disD_cfg, emb)
+    if data.ndim == 2:
+        data = F.one_hot(data, gcfg.n_token).float()
+    return disc_mod.relgan_logits(disD_params, disD_cfg, data)
+
+
+def ppo_surrogate(disD_params, disD_cfg, gcfg: GanConfig, fake_chunk,
+                  d_out_fake: torch.Tensor, P0: torch.Tensor) -> torch.Tensor:
+    """The PPO-clipped target that replaces d_out_fake in the generator's
+    loss: ratio = (1 - D1) / max(D1 P0, 1e-7) with D1 = sigmoid(dis_D),
+    clipped to 1 +- clip_param, the pessimistic of the two products. A main
+    discriminator with num_rep scores a row (the RelGAN) gets each row's
+    ratio num_rep times (the reference ran PPO only with the BERT critic,
+    one score a row)."""
+    D1 = torch.sigmoid(dis_D_forward(disD_params, disD_cfg, gcfg,
+                                     fake_chunk).float())
+    ratio = (1.0 - D1) / torch.clamp(D1 * P0, min=1e-7)
+    ratio_clipped = torch.clamp(ratio, 1.0 - gcfg.clip_param,
+                                1.0 + gcfg.clip_param)
+    if d_out_fake.shape[0] != ratio.shape[0]:
+        rep = d_out_fake.shape[0] // ratio.shape[0]
+        ratio = ratio.repeat_interleave(rep)
+        ratio_clipped = ratio_clipped.repeat_interleave(rep)
+    surr1, surr2 = ratio * d_out_fake, ratio_clipped * d_out_fake
+    return torch.where(d_out_fake > 0, torch.minimum(surr1, surr2),
+                       torch.maximum(surr1, surr2))
+
+
+@torch.no_grad()
+def compute_P0(disD_params, disD_cfg, gcfg: GanConfig,
+               fake_chunk) -> torch.Tensor:
+    """The P0 snapshot [bsz], (1 - D0) / max(D0, 1e-7)."""
+    D0 = torch.sigmoid(dis_D_forward(_detached(disD_params), disD_cfg, gcfg,
+                                     fake_chunk.detach()).float())
+    return (1.0 - D0) / torch.clamp(D0, min=1e-7)
+
+
+def classifier_loss_for_batch(gen_params, disD_params, disD_cfg, xcfg,
+                              gcfg: GanConfig, data: torch.Tensor, temperature,
+                              draws: Draws) -> torch.Tensor:
+    """dis_D's BCE on one batch, real -> 1 and fake -> 0 (probabilities
+    clamped to [1e-7, 1 - 1e-7]), summed over chunks and scaled by
+    1 / (batch_chunk * sample_chunks_mem). The fakes are sampled forward
+    only from the detached generator (noise from ``draws``)."""
+    chunks = sample_fake_chunks(_detached(gen_params), xcfg, gcfg, data,
+                                temperature,
+                                _chunk_noise(gcfg, draws, data.shape[1]),
+                                forward_only=True)
+    eps = 1e-7
+    total = torch.zeros((), dtype=torch.float32, device=data.device)
+    for fake, real_ids in chunks:
+        pr = torch.sigmoid(dis_D_forward(disD_params, disD_cfg, gcfg,
+                                         real_ids).float())
+        pf = torch.sigmoid(dis_D_forward(disD_params, disD_cfg, gcfg,
+                                         fake.detach()).float())
+        total = total + (-torch.log(torch.clamp(pr, eps, 1 - eps)).mean()
+                         - torch.log(torch.clamp(1 - pf, eps, 1 - eps)).mean())
+    return total / (gcfg.batch_chunk * gcfg.sample_chunks_mem)

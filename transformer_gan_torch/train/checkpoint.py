@@ -9,7 +9,8 @@ Counterpart of ``transformer_gan_tpu/train/checkpoint.py``:
 * warm start (``TRAIN.load_from_previous``): generator params only,
   non-strict (missing or mismatched names keep the fresh init);
 * the GAN payload: discriminator parameters and the gen / dis optimizer
-  states;
+  states, under PPO also dis_D's parameters and optimizer state (P0 is
+  not saved: the first gen phase after a restart re-snapshots it);
 * BERT checkpoints (the MLM pretrainer's ``checkpoint-{step}``): a
   directory holding ``params.pt`` (``convert.FORMAT``) and
   ``metadata.json`` (``{"step", "config": {vocab_size, num_hidden_layers,
@@ -66,18 +67,18 @@ def save_checkpoint(work_dir: str, name: str, params: dict,
                     opt_state: FusedOptState, metadata: dict,
                     gan: dict | None = None) -> str:
     """Write checkpoint ``name`` (and its GAN payload ``gan``: dis_params,
-    gen_opt_state, optional dis_opt_state); returns the parameter file's
-    path."""
+    gen_opt_state, optional dis_opt_state, disD_params and
+    disD_opt_state); returns the parameter file's path."""
     p_path, o_path, m_path = _paths(work_dir, name)
     _atomic(p_path, lambda t: convert.save_params(t, params))
     _atomic(o_path, lambda t: torch.save(_opt_dict(opt_state), t))
     if gan is not None:
         _atomic(_gan_path(work_dir, name), lambda t: torch.save({
             "format": GAN_FORMAT,
-            "dis_params": {k: v.detach().cpu().contiguous()
-                           for k, v in gan["dis_params"].items()},
-            **{k: _opt_dict(gan[k]) for k in ("gen_opt_state",
-                                              "dis_opt_state") if k in gan}},
+            **{k: {n: v.detach().cpu().contiguous()
+                   for n, v in gan[k].items()}
+               for k in _GAN_PARAMS if k in gan},
+            **{k: _opt_dict(gan[k]) for k in _GAN_OPT_STATES if k in gan}},
             t))
 
     def write_meta(t):
@@ -89,6 +90,10 @@ def save_checkpoint(work_dir: str, name: str, params: dict,
 
 def checkpoint_exists(work_dir: str, name: str) -> bool:
     return all(os.path.exists(p) for p in _paths(work_dir, name))
+
+
+_GAN_PARAMS = ("dis_params", "disD_params")
+_GAN_OPT_STATES = ("gen_opt_state", "dis_opt_state", "disD_opt_state")
 
 
 def _gan_path(work_dir: str, name: str) -> str:
@@ -105,16 +110,17 @@ def load_opt_state(path: str, device=None) -> FusedOptState:
 
 def load_gan_payload(work_dir: str, name: str, device=None) -> dict | None:
     """The GAN payload of checkpoint ``name`` (None for an MLE checkpoint):
-    dis_params and the optimizer states as ``FusedOptState``."""
+    dis_params (and disD_params) and the optimizer states as
+    ``FusedOptState``."""
     path = _gan_path(work_dir, name)
     if not os.path.exists(path):
         return None
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(payload, dict) or payload.get("format") != GAN_FORMAT:
         raise ValueError(f"{path} is not a {GAN_FORMAT} file")
-    out = {"dis_params": {k: v.to(device)
-                          for k, v in payload["dis_params"].items()}}
-    for k in ("gen_opt_state", "dis_opt_state"):
+    out = {k: {n: v.to(device) for n, v in payload[k].items()}
+           for k in _GAN_PARAMS if k in payload}
+    for k in _GAN_OPT_STATES:
         if k in payload:
             out[k] = _opt_from_dict(payload[k], device)
     return out
@@ -180,6 +186,29 @@ def load_bert_metadata(path: str) -> dict:
 
 def load_bert_params(path: str, device=None) -> dict:
     return convert.load_params(os.path.join(path, BERT_PARAMS), device)
+
+
+BERT_SIZE_KEYS = ("vocab_size", "hidden_size", "num_hidden_layers",
+                  "num_attention_heads", "intermediate_size")
+
+
+def bert_sizes(path: str) -> dict:
+    """The ``BertConfig`` sizes a BERT checkpoint's metadata records."""
+    meta = load_bert_metadata(path).get("config", {})
+    return {k: int(meta[k]) for k in BERT_SIZE_KEYS if k in meta}
+
+
+def load_bert_model(path: str, device=None):
+    """(``BertConfig``, parameters on ``device``) of the BERT checkpoint
+    directory ``path``: sized by its metadata (the defaults without one),
+    every leaf whose name and shape match from the checkpoint, the rest
+    freshly initialized (seed 0). Raises OSError when there is no
+    checkpoint to read."""
+    from ..models import bert as bert_mod
+    cfg = bert_mod.BertConfig(**bert_sizes(path))
+    params = bert_mod.init_bert_params(cfg, seed=0)
+    params = graft_bert_trunk(path, params, list(params))
+    return cfg, {k: v.to(device) for k, v in params.items()}
 
 
 def graft_bert_trunk(path: str, template: dict, trunk: list[str]) -> dict:

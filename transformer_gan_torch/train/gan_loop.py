@@ -1,12 +1,13 @@
 """GAN training phases for the RelGAN CNN discriminator and the BERT
-critic.
+critic, PPO included.
 
 Counterpart of ``transformer_gan_tpu/train/gan_loop.py`` (``GanPhases``)
 for ``DISCRIMINATOR.type: cnn`` and ``bert``: the discriminator phase
 (``dis_steps`` updates over fresh real batches, gradients summed over the
 ``batch_chunk`` micro-batches), the generator phase (one update of the
-trainer's own generator parameters), the logged losses and the
-checkpoint payload. Each phase's optimizer is clip, Adam, the base lr and
+trainer's own generator parameters; under PPO first one update of the
+auxiliary classifier ``dis_D``), the logged losses and the checkpoint
+payload. Each phase's optimizer is clip, Adam, the base lr and
 a multiplier set from the phase's schedule at the training step
 (``train/optim.make_gan_optimizers``).
 
@@ -17,6 +18,14 @@ takes that checkpoint's trunk (:func:`_bert_dis_cfg`,
 the layers named in ``BERT.freeze_layers`` are frozen exactly
 (:func:`_bert_frozen`): the dis phase takes no gradient of them and its
 optimizer zeroes their updates.
+
+Under PPO (``loss_type`` ppo / ppo-gp), ``dis_D`` is a second BERT of
+the critic's size (seed 23; the trunk of the same MLM checkpoint, grafted
+as the critic's is) or, with ``PPO.dis_D_type: cnn``, a RelGAN CNN; all
+its leaves train (``optim.make_disD_optimizer``). P0 ([batch_size /
+batch_chunk] odds) is re-snapshotted in the gen phase every
+``PPO.dis_D_update_D0_freq`` steps and on the first gen phase after a
+start or a restart (it is not checkpointed, as in the JAX package).
 
 The random numbers of a micro-batch come from :meth:`GanPhases._draws`, a
 ``models/gan.Draws`` over the phases' own generator on the device.
@@ -51,11 +60,7 @@ def _bert_dis_cfg(cfg, vocab_len: int) -> bert_mod.BertConfig:
               compute_dtype=cfg.TPU.compute_dtype)
     if (not b.random_weights and not is_null(b.model_path)
             and os.path.isdir(b.model_path)):
-        meta = ckpt.load_bert_metadata(b.model_path).get("config", {})
-        for key in ("vocab_size", "hidden_size", "num_hidden_layers",
-                    "num_attention_heads", "intermediate_size"):
-            if key in meta:
-                kw[key] = int(meta[key])
+        kw.update(ckpt.bert_sizes(b.model_path))
     if kw["vocab_size"] < vocab_len + 1:
         raise ValueError(
             f"BERT checkpoint vocab {kw['vocab_size']} cannot embed the "
@@ -119,6 +124,7 @@ class GanPhases:
         self.dis_opt_state = (None if d.freeze_discriminator
                               else self.dis_opt.init(self.dis_flat))
         self.gen_opt_state = self.gen_opt.init(trainer.state.flat.detach())
+        self._init_disD(cfg, len(trainer.vocab))
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(cfg.TRAIN.seed) + 777)
         self._dis_stream = trainer.dis_iter()
@@ -146,8 +152,40 @@ class GanPhases:
             logging.info("Starting BERT discriminator from random weights")
         return params
 
+    def _init_disD(self, cfg, vocab_len: int) -> None:
+        """PPO's classifier dis_D, its optimizer and P0 (none without PPO).
+        The BERT dis_D takes only the trunk of the MLM checkpoint, like the
+        critic: the JAX package restores every leaf whose path and shape
+        match, the checkpoint's untrained pooler and classifier included,
+        where the reference grafts the trunk into a fresh classifier."""
+        self.disD_cfg = self.disD_layout = self.disD_flat = None
+        self.disD_opt = self.disD_opt_state = None
+        self.P0 = torch.zeros(cfg.TRAIN.batch_size // self.gcfg.batch_chunk,
+                              device=self.device)
+        self.P0_initialized = False
+        if not self.gcfg.ppo:
+            return
+        d = cfg.DISCRIMINATOR
+        if self.gcfg.ppo_dis_type == "bert":
+            self.disD_cfg = _bert_dis_cfg(cfg, vocab_len)
+            params = self._init_bert(self.disD_cfg, d.BERT.model_path,
+                                     d.BERT.random_weights, seed=23)
+        else:
+            self.disD_cfg = disc_mod.RelganConfig(
+                embed_dim=d.CNN.embed_dim, num_rep=cfg.PPO.dis_D_num_rep,
+                vocab_size=vocab_len, init=d.CNN.init,
+                compute_dtype=cfg.TPU.compute_dtype)
+            params = disc_mod.init_relgan_params(self.disD_cfg, seed=23)
+        self.disD_layout = topt.FlatLayout.of(params)
+        self.disD_flat = self.disD_layout.flatten(params).to(self.device)
+        self.disD_opt = topt.make_disD_optimizer(cfg, self.disD_layout)
+        self.disD_opt_state = self.disD_opt.init(self.disD_flat)
+
     def dis_params(self) -> dict:
         return self.dis_layout.unflatten(self.dis_flat)
+
+    def disD_params(self) -> dict:
+        return self.disD_layout.unflatten(self.disD_flat)
 
     def _draws(self) -> gan_mod.Draws:
         """The random numbers of the next micro-batch."""
@@ -200,25 +238,58 @@ class GanPhases:
                      time.perf_counter() - t0)
         return grad
 
-    def gen_phase(self, train_step_num: int) -> torch.Tensor:
-        """One adversarial update of the trainer's generator parameters.
+    def classifier_phase(self, data_c: torch.Tensor) -> torch.Tensor:
+        """PPO: one update of dis_D over the micro-batches of ``data_c``
+        (BCE, real -> 1, fake -> 0, on fakes of the detached generator).
         Returns its flat gradient (before clipping)."""
+        gcfg = self.gcfg
+        gen_params = {k: v.detach()
+                      for k, v in self.trainer.state.params().items()}
+        flat = self.disD_flat.detach().requires_grad_(True)
+        params = self.disD_layout.unflatten(flat)
+        grad = torch.zeros_like(self.disD_flat)
+        for c in range(gcfg.batch_chunk):
+            loss = gan_mod.classifier_loss_for_batch(
+                gen_params, params, self.disD_cfg, self.xcfg, gcfg, data_c[c],
+                self.temperature, self._draws())
+            grad += torch.autograd.grad(loss, flat)[0]
+        self.disD_opt_state = self.disD_opt.update(self.disD_flat, grad,
+                                                   self.disD_opt_state)
+        return grad
+
+    def gen_phase(self, train_step_num: int) -> torch.Tensor:
+        """One adversarial update of the trainer's generator parameters,
+        under PPO after one update of dis_D on the same real batch
+        (:meth:`classifier_phase`) and with P0 re-snapshotted when
+        ``update_D0``. Returns the generator's flat gradient (before
+        clipping)."""
         t0 = time.perf_counter()
         gcfg = self.gcfg
         state = self.trainer.state
         self.gen_opt_state = topt.set_lr_multiplier(
             self.gen_opt_state, float(self.gen_sched(train_step_num)))
         data_c = self._next_dis_batch()
+        update_D0 = (train_step_num % self.cfg.PPO.dis_D_update_D0_freq == 0
+                     or not self.P0_initialized)
+        disD_params = None
+        if gcfg.ppo:
+            self.classifier_phase(data_c)
+            disD_params = {k: v.detach() for k, v in self.disD_params().items()}
         dis_params = {k: v.detach() for k, v in self.dis_params().items()}
         grad = torch.zeros_like(state.flat, requires_grad=False)
         gsum = torch.zeros((), device=self.device)
+        P0 = self.P0
         for c in range(gcfg.batch_chunk):
             losses = gan_mod.gan_losses_for_batch(
                 state.params(), dis_params, self.dis_cfg, self.xcfg, gcfg,
-                data_c[c], self.temperature, self._draws(), train_dis=False)
+                data_c[c], self.temperature, self._draws(), train_dis=False,
+                disD_params=disD_params, disD_cfg=self.disD_cfg, P0=P0,
+                update_P0=gcfg.ppo and update_D0)
+            P0 = losses["P0"]
             total = losses["gen_loss"] * gcfg.gen_loss_factor * self._scale()
             grad += torch.autograd.grad(total, state.flat)[0]
             gsum = gsum + losses["gen_loss"].detach()
+        self.P0, self.P0_initialized = P0, True
         self.gen_opt_state = self.gen_opt.update(state.flat, grad,
                                                  self.gen_opt_state)
         self.log_gen_loss = (self.log_gen_loss + gsum * gcfg.gen_loss_factor
@@ -239,19 +310,29 @@ class GanPhases:
         return g, d
 
     def ckpt_payload(self) -> dict:
-        """Discriminator parameters and both optimizer states (CPU)."""
+        """Discriminator parameters and both optimizer states (CPU); under
+        PPO also dis_D's parameters and optimizer state (not P0)."""
         payload = {"dis_params": {k: v.detach().cpu()
                                   for k, v in self.dis_params().items()},
                    "gen_opt_state": self.gen_opt_state}
         if self.dis_opt_state is not None:
             payload["dis_opt_state"] = self.dis_opt_state
+        if self.disD_flat is not None:
+            payload["disD_params"] = {k: v.detach().cpu()
+                                      for k, v in self.disD_params().items()}
+            payload["disD_opt_state"] = self.disD_opt_state
         return payload
 
     def restore(self, payload: dict) -> None:
-        if "dis_params" in payload:
-            with torch.no_grad():
+        with torch.no_grad():
+            if "dis_params" in payload:
                 self.dis_flat.copy_(self.dis_layout.flatten(
                     payload["dis_params"]).to(self.device))
+            if "disD_params" in payload and self.disD_flat is not None:
+                self.disD_flat.copy_(self.disD_layout.flatten(
+                    payload["disD_params"]).to(self.device))
+                self.disD_opt_state = _to(payload["disD_opt_state"],
+                                          self.device)
         if "gen_opt_state" in payload:
             self.gen_opt_state = _to(payload["gen_opt_state"], self.device)
         if "dis_opt_state" in payload:

@@ -1,5 +1,5 @@
 """Training loop on one device (counterpart of
-``transformer_gan_tpu/train/loop.py`` without the generation metrics).
+``transformer_gan_tpu/train/loop.py``).
 
 Owns the run directory, seeding, the iterators, the step functions,
 logging (the JAX package's ``Train Step ...`` and ``Eval step ...`` lines),
@@ -9,6 +9,13 @@ discriminator configured (``DISCRIMINATOR.type: cnn`` or ``bert``) the GAN
 phases run after the MLE step from ``start_iter`` on
 (``train/gan_loop.GanPhases``), with the temperature annealed per step,
 their losses on the log line and their state in the checkpoints.
+
+The quality metrics (``METRICS.use_bleu``, ``use_self_bleu``,
+``CLASSIFIER.use_classifier``) sample ``gen_seq_len``-token pieces from the
+generator with gumbel-argmax on K3 (``infer/sample.generate_tokens_gumbel``)
+in waves of :data:`WAVE_WIDTHS`, each call from its own random stream, and
+score them: BLEU against the eval split, self-BLEU against a second set,
+the BERT classifier's held-out accuracy against the validation pieces.
 
 The device is the card: ``device=None`` means CUDA and raises without one;
 the CPU (the plain path) only when the caller passes ``"cpu"``.
@@ -26,6 +33,7 @@ import torch
 from .._native import resolve_device
 from ..config import check_gan_config, is_null
 from ..data.dataset import MusicDataset
+from ..infer.sample import generate_tokens_gumbel, gumbel_draws
 from ..models import xl
 from ..utils.logging import logging_config
 from . import checkpoint as ckpt
@@ -34,12 +42,20 @@ from . import step as tstep
 from .losses import get_fixed_temperature
 
 
+# The metrics' wave widths, fastest first: K3's generated tokens/s rises
+# with the lanes up to its 32 (chip_smoke numbers.metrics, PERF.md). A wave
+# takes the first width that divides the sample count and is at most
+# METRICS.gen_batch_size.
+WAVE_WIDTHS = (32, 16, 8, 4, 2, 1)
+
+
+def wave_width(num_samples: int, batch_size: int) -> int:
+    return next(w for w in WAVE_WIDTHS
+                if w <= batch_size and num_samples % w == 0)
+
+
 def _refuse_unported(cfg) -> None:
     check_gan_config(cfg)
-    if (cfg.METRICS.use_bleu or cfg.METRICS.use_self_bleu
-            or cfg.METRICS.CLASSIFIER.use_classifier):
-        raise NotImplementedError(
-            "generation metrics (METRICS.use_*) are not ported yet")
     if cfg.TPU.remat:
         raise NotImplementedError("TPU.remat is not ported yet")
     if cfg.TPU.profile_dir:
@@ -127,6 +143,21 @@ class Trainer:
             self.vocab.pad_id, use_mle=cfg.TRAIN.use_mle,
             same_length=cfg.MODEL.same_length)
         self.eval_step_fn = tstep.make_eval_step(self.xcfg, self.vocab.pad_id)
+
+        from ..metrics.bleu import BLEU
+        from ..metrics.classifier import Classifier
+        m = cfg.METRICS
+        self.bleu = BLEU("BLEU", gram=[2, 3, 4, 5], if_use=m.use_bleu)
+        self.self_bleu = BLEU("Self-BLEU", gram=[2, 3, 4],
+                              if_use=m.use_self_bleu)
+        self.classifier = Classifier(
+            "Classifier", if_use=m.CLASSIFIER.use_classifier,
+            seq_len=m.CLASSIFIER.block_size,
+            batch_size=m.CLASSIFIER.bert_batch_size,
+            model_name_or_path=m.CLASSIFIER.model_path, device=self.device)
+        # calls of _generate_tokens so far: each draws its own stream
+        self._gen_wave = 0
+        self.metrics_timing = {}
         self.gan = None
         if self.has_gan:
             from .gan_loop import GanPhases
@@ -170,9 +201,11 @@ class Trainer:
         self.state.step = self.train_step_num
 
     # ------------------------------------------------------------------
-    def evaluate(self, eval_iter) -> tuple[int, float]:
+    def evaluate(self, eval_iter, mode: str = "eval"
+                 ) -> tuple[int, float, list]:
         """Masked-NLL evaluation; the NLL total is a compensated (Kahan)
-        fp32 sum on the device, fetched once at the end."""
+        fp32 sum on the device, fetched once at the end. Then the quality
+        metrics (:meth:`_generation_metrics`)."""
         cfg = self.cfg
         dev = self.device
         total_tokens = torch.zeros((), dtype=torch.int64, device=dev)
@@ -192,7 +225,82 @@ class Trainer:
             comp = (t - total_nll) - y
             total_nll = t
             total_tokens = total_tokens + cnt
-        return int(total_tokens), float(total_nll)
+        return (int(total_tokens), float(total_nll),
+                self._generation_metrics(mode))
+
+    @torch.no_grad()
+    def _generate_tokens(self, num_samples: int, batch_size: int,
+                         seq_len: int) -> np.ndarray:
+        """[num_samples, seq_len] gumbel-argmax pieces from <S> (token 0) on
+        a fresh ``seq_len``-slot memory, in waves of :func:`wave_width`
+        lanes. Each call draws from its own stream, seeded by the training
+        step and the call's index, so two sets of one eval differ (else
+        self-BLEU is 1.0). The waves' tokens stay on the device and are
+        fetched once."""
+        dev = self.device
+        wave = wave_width(num_samples, batch_size)
+        seed = np.random.SeedSequence(
+            (1234 + self.train_step_num, self._gen_wave)).generate_state(1)[0]
+        self._gen_wave += 1
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        params = {k: v.detach() for k, v in self.state.params().items()}
+        out = []
+        for _ in range(num_samples // wave):
+            mems = xl.init_mems(self.xcfg, seq_len, wave, device=dev)
+            first = torch.zeros((wave,), dtype=torch.int64, device=dev)
+            g = gumbel_draws(seq_len - 1, wave, self.xcfg.n_token, gen, dev)
+            out.append(generate_tokens_gumbel(params, self.xcfg, seq_len,
+                                              first, mems, g).T)
+        return torch.cat(out).cpu().numpy()
+
+    def _generation_metrics(self, mode: str) -> list:
+        """BLEU (mode "eval": against the validation pieces, else the test
+        pieces), self-BLEU and the classifier's accuracy (mode "eval"
+        only) on generated pieces: a first set of ``bleu_num_samples``
+        serves as BLEU's hypotheses and self-BLEU's references, a second
+        of ``self_bleu_num_samples`` as self-BLEU's hypotheses, a third of
+        ``CLASSIFIER.gen_num_samples`` as the classifier's generated side.
+        ``metrics_timing[mode]`` keeps the seconds of each part."""
+        m = self.cfg.METRICS
+        timing, pc = {}, time.perf_counter
+        gen_tokens = None
+        if m.use_bleu or (m.use_self_bleu and mode == "eval"):
+            t0 = pc()
+            gen_tokens = self._generate_tokens(
+                m.bleu_num_samples, m.gen_batch_size, m.gen_seq_len).tolist()
+            timing["generate_bleu_s"] = pc() - t0
+        if m.use_bleu:
+            corpus = (self.dataset.valid_data if mode == "eval"
+                      else self.dataset.test_data)
+            self.bleu.reset(test_text=gen_tokens,
+                            real_text=[x.tolist() for x in corpus])
+        if m.use_self_bleu and mode == "eval":
+            t0 = pc()
+            gen_tokens_s = self._generate_tokens(
+                m.self_bleu_num_samples, m.gen_batch_size,
+                m.gen_seq_len).tolist()
+            timing["generate_self_bleu_s"] = pc() - t0
+            self.self_bleu.reset(test_text=gen_tokens_s, real_text=gen_tokens)
+        if m.CLASSIFIER.use_classifier and mode == "eval":
+            c = m.CLASSIFIER
+            t0 = pc()
+            gen = self._generate_tokens(c.gen_num_samples, c.gen_batch_size,
+                                        c.gen_seq_len)
+            timing["generate_classifier_s"] = pc() - t0
+            self.classifier.reset(test_text=list(gen),
+                                  real_text=self.dataset.valid_data)
+        t0 = pc()
+        scores = [self.bleu.get_score()]
+        timing["bleu_s"] = pc() - t0
+        if mode == "eval":
+            t0 = pc()
+            scores.append(self.self_bleu.get_score())
+            timing["self_bleu_s"] = pc() - t0
+            scores.append(self.classifier.get_score())
+            timing["classifier"] = dict(getattr(self.classifier,
+                                                "last_timing", {}))
+        self.metrics_timing[mode] = timing
+        return scores
 
     # ------------------------------------------------------------------
     def train(self) -> None:
@@ -265,7 +373,7 @@ class Trainer:
             logging.warning(
                 "checkpoint_best not found under %s; final test eval uses "
                 "the current (last-step) weights", self.work_dir)
-        tok, nll = self.evaluate(self.test_iter)
+        tok, nll, _ = self.evaluate(self.test_iter, mode="test")
         test_nll = nll / max(tok, 1)
         logging.info("=" * 100)
         logging.info("| End of training | test nll %5.2f | test ppl %9.3f",
@@ -276,13 +384,13 @@ class Trainer:
     # ------------------------------------------------------------------
     def _eval_and_checkpoint(self) -> None:
         eval_start = time.time()
-        tok, nll = self.evaluate(self.val_iter)
+        tok, nll, val_metrics = self.evaluate(self.val_iter, mode="eval")
         val_nll = nll / max(tok, 1)
         logging.info(
             "Eval step %d, time=%.1fs, val nll=%.5f, val ppl=%.3f,"
             " #evaluated tokens=%d, bleu=%s, self_bleu=%s, class_acc=%s",
             self.train_step_num, time.time() - eval_start, val_nll,
-            math.exp(min(val_nll, 50.0)), tok, None, None, None)
+            math.exp(min(val_nll, 50.0)), tok, *val_metrics)
         if not self.debug:
             self._save(f"checkpoint_{self.train_step_num}" if self.save_all
                        else "checkpoint_last", val_nll)
@@ -291,13 +399,14 @@ class Trainer:
             if not self.debug:
                 self._save("checkpoint_best", self.best_val_nll)
             test_start = time.time()
-            ttok, tnll = self.evaluate(self.test_iter)
+            ttok, tnll, test_metrics = self.evaluate(self.test_iter,
+                                                     mode="test")
             test_nll = tnll / max(ttok, 1)
             logging.info(
                 "Test step %d, time=%.1fs, test nll=%.5f, test ppl=%.3f,"
                 " #evaluated tokens=%d, test_bleu=%s", self.train_step_num,
                 time.time() - test_start, test_nll,
-                math.exp(min(test_nll, 50.0)), ttok, None)
+                math.exp(min(test_nll, 50.0)), ttok, test_metrics[0])
         if self.plateau is not None:
             self.state.opt_state = topt.set_lr_multiplier(
                 self.state.opt_state, self.plateau.step(val_nll))

@@ -18,7 +18,9 @@ Counterpart of ``transformer_gan_tpu/train/optim.py``:
   discriminator's flat vectors. The BERT critic's adds weight decay after
   Adam (its decay mask) and the exact freeze of the JAX package's
   ``_masked``: a frozen leaf's gradient is zeroed before the clip and its
-  update after the chain (the optimizer's ``trainable`` mask).
+  update after the chain (the optimizer's ``trainable`` mask). PPO's
+  auxiliary classifier ``dis_D`` has its own (``make_disD_optimizer``):
+  clip, Adam, ``PPO.dis_D_lr``, with no schedule and no frozen leaf.
 """
 from __future__ import annotations
 
@@ -325,3 +327,11 @@ def make_gan_optimizers(cfg, gen_layout: FlatLayout, dis_layout: FlatLayout,
         dis_opt = FusedOptimizer("adam", d.CNN.learning_rate, _no_schedule,
                                  cfg.TRAIN.clip, layout=dis_layout)
     return gen_opt, gen_sched, dis_opt, dis_sched
+
+
+def make_disD_optimizer(cfg, layout: FlatLayout) -> FusedOptimizer:
+    """PPO's classifier ``dis_D``: clip by TRAIN.clip, Adam (eps 1e-8),
+    PPO.dis_D_lr, no schedule. Unlike the BERT critic's, no leaf of it is
+    frozen: the JAX package's chain has no trainable mask."""
+    return FusedOptimizer("adam", float(cfg.PPO.dis_D_lr), _no_schedule,
+                          cfg.TRAIN.clip, layout=layout)
