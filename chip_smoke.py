@@ -34,7 +34,16 @@ Phases, one line each; any failure exits non-zero:
    cores), a 2-step run at TRAIN.mem_length 0 with random_crop (K2f, K2b),
    the generation CLI on
    the trained run directory, and two fp32 full-width training steps of the
-   kernel path against the CPU plain path;
+   kernel path against the CPU plain path; then the MIDI-to-MIDI pipeline
+   (main_path.codec): ``tools.make_synth_corpus`` writes 200 / 24 / 24
+   structured pieces as MIDI, ``cli.encode`` turns them into a data
+   directory on the native encoder (the train split's 35-way grid), held
+   bit-exact against the pure-Python encoder on 4 pieces x 35 and the valid
+   split, ``cli.train`` trains 500 steps on it (K1f, K1b; the val NLL
+   beside the corpus's unigram entropy), ``cli.batch_generate`` samples
+   4096 tokens at M 4146 from a valid prefix and unconditionally under
+   topk and random (K1f, K3), and each MIDI file it writes re-encodes to a
+   decode -> encode fixed point within 5 passes;
 6. main path, GAN: ``transformer_gan_torch.cli.train`` on
    experiment_cnn.yml (batch 64, warm start from the training run) with a
    dis and a gen phase at steps 1 and 2 and a restart (K4, K6), a second run
@@ -221,6 +230,7 @@ def main() -> None:
 
     # 5. main path, training, through the CLI
     train_launches, mle_run = run_train_path(_native)
+    codec_launches = run_codec_path(_native)
     train_ref = check_train_reference()
     phase("main_path.train_reference", **train_ref)
     if not train_ref["ok"]:
@@ -266,6 +276,7 @@ def main() -> None:
         busy_share_traced=trace["busy_share"],
         busy_share_call_traced=trace["busy_share_call"])
     paths = {"generate": summaries["launches"], "train": train_launches,
+             "codec": codec_launches,
              "gan": gan_launches, "gan_bert": span_launches,
              "ppo": ppo_launches, "metrics": metrics_launches}
     launches = {k: sum(p[k] for p in paths.values()) for k in _native.LAUNCHES}
@@ -910,6 +921,246 @@ def run_train_path(_native) -> tuple[dict, str]:
     phase("main_path.train_generate", files=len(summary["files"]),
           tokens=summary["tokens"], launches=launches)
     return total, os.path.join(ROOT, runs["mem1024"]["run_dir"])
+
+
+# ---------------------------------------------------------------------------
+# The codec: MIDI -> tokens -> train -> generate -> MIDI
+# ---------------------------------------------------------------------------
+
+CODEC_SEED = 1234
+CODEC_PIECES = {"train": 200, "valid": 24, "test": 24}
+CODEC_GRID = {"stretch_factors": [0.95, 0.975, 1.0, 1.025, 1.05],
+              "pitch_transpose_lower": -3, "pitch_transpose_upper": 3}
+CODEC_EXACT_PIECES = 4      # train pieces held bit-exact over the whole grid
+# the shipped schedule (lr 0.004, inv_sqrt, warmup 4000) cut at 500 steps:
+# the lr ramps to 5e-4 (lr 1e-3 after 100 warm-up steps left the model on
+# the unigram plateau; PERF.md)
+CODEC_TRAIN = {"batch_size": B_TRAIN, "max_step": 500, "log_interval": 50,
+               "eval_interval": 100}
+CODEC_SAMPLING = ["--techniques", "topk,random", "--temperatures", "0.95",
+                  "--threshold", "32"]
+CODEC_PREFIX = 50
+
+
+def _python_module(*args) -> tuple[float, str]:
+    """Run ``python -m ...`` from the checkout; (seconds, its stdout)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"{args[0]} exited {out.returncode}: {out.stderr[-3000:]}")
+    return time.perf_counter() - t0, out.stdout
+
+
+def _codec_exact(midi: str, data: str) -> dict:
+    """The npy files the CLI wrote on the native encoder against the port's
+    pure-Python encoder: the first CODEC_EXACT_PIECES train pieces over the
+    whole grid and every valid piece canonically, bit for bit; both
+    encoders timed on the same pieces in this process."""
+    import numpy as np
+    from transformer_gan_torch.data.codec import PerformanceEventRepo
+
+    train = [os.path.join(midi, "train", f"p{i:04d}.mid")
+             for i in range(CODEC_EXACT_PIECES)]
+    valid = [os.path.join(midi, "valid", f"p{i:04d}.mid")
+             for i in range(CODEC_PIECES["valid"])]
+    encoded, timing = {}, {}
+    for encoder in ("python", "native"):
+        grid = PerformanceEventRepo(encoder=encoder, **CODEC_GRID)
+        canon = PerformanceEventRepo(encoder=encoder)
+        t0 = time.perf_counter()
+        out = [list(grid.encode_transposition(p)) for p in train]
+        out += [[canon.encode(p)] for p in valid]
+        seconds = time.perf_counter() - t0
+        encoded[encoder] = out
+        tokens = sum(len(ids) for piece in out for ids in piece)
+        encodings = sum(len(piece) for piece in out)
+        timing[encoder] = {"seconds": seconds, "encodings": encodings,
+                           "tokens": tokens,
+                           "encodings_per_s": encodings / seconds,
+                           "tokens_per_s": tokens / seconds}
+    written = []
+    for path in train:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        written.append([np.load(os.path.join(data, "train",
+                                             f"{stem}_arg{k}.npy")).tolist()
+                        for k in range(35)])
+    for path in valid:
+        written.append([np.load(os.path.join(
+            data, "valid", os.path.basename(path)[:-4] + ".npy")).tolist()])
+    cases = sum(len(piece) for piece in written)
+    if not (encoded["python"] == encoded["native"] == written):
+        fail("the native encoder's npy files differ from the pure-Python "
+             "encoder's")
+    return {"cases_bit_exact": cases, "timing": timing}
+
+
+def _corpus_stats(data: str) -> dict:
+    """Pieces, tokens, ids used and the unigram entropy (nats) by split."""
+    import glob
+    import math
+    import numpy as np
+    stats = {}
+    for split in ("train", "valid", "test"):
+        files = sorted(glob.glob(os.path.join(data, split, "*.npy")))
+        counts = np.zeros(310, np.int64)
+        for f in files:
+            counts += np.bincount(np.load(f), minlength=310)
+        p = counts[counts > 0] / counts.sum()
+        stats[split] = {"pieces": len(files), "tokens": int(counts.sum()),
+                        "ids_used": int((counts > 0).sum()),
+                        "unigram_entropy": float(-(p * np.log(p)).sum())}
+    stats["log_vocab"] = math.log(310)
+    return stats
+
+
+def fixed_point_passes(repo, path: str, work: str, limit: int = 5):
+    """decode -> encode from a MIDI file until the ids stop changing: the
+    passes it took, or None past ``limit`` (the CPU tests use it too)."""
+    prev = repo.encode(path)
+    for it in range(1, limit + 1):
+        mid = os.path.join(work, f"fixed_point_{it}.mid")
+        repo.decode(prev, save_path=mid)
+        cur = repo.encode(mid)
+        if cur == prev:
+            return it
+        prev = cur
+    return None
+
+
+def run_codec_path(_native) -> dict:
+    """The MIDI-to-MIDI pipeline through the port's entry points at the
+    baseline model's full width: the synthetic corpus as MIDI
+    (tools.make_synth_corpus, seed 1234, 200 / 24 / 24 pieces), cli.encode
+    on the native encoder (the train split's 35-way grid, valid / test
+    canonical) held bit-exact against the pure-Python encoder, cli.train
+    on that directory (B 128, tgt 128, mem 1024, 500 steps of the shipped
+    schedule; K1f, K1b), cli.batch_generate
+    from the trained run (M 4146, 4096 tokens, a valid piece's first 50
+    tokens and the unconditional run under topk 32 / T 0.95 and random; K1f,
+    K3), and each MIDI file it writes re-encoded to a decode -> encode fixed
+    point within 5 passes. Returns the launches of training and generation."""
+    import math
+    import shutil
+    from transformer_gan_torch.cli import batch_generate as bcli
+    from transformer_gan_torch.cli import train as tcli
+    from transformer_gan_torch.data.codec import PerformanceEventRepo
+
+    t_start = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke", "codec")
+    shutil.rmtree(work, ignore_errors=True)
+    midi, data = os.path.join(work, "midi"), os.path.join(work, "data")
+    corpus_s, _ = _python_module(
+        "transformer_gan_torch.tools.make_synth_corpus", "--out_dir", midi,
+        "--write_midi", "--seed", str(CODEC_SEED),
+        *(a for split, n in CODEC_PIECES.items()
+          for a in (f"--n_{split}", str(n))))
+    encode_s, printed = _python_module(
+        "transformer_gan_torch.cli.encode", "--input_folder", midi,
+        "--output_folder", data, "--mode", "midi_to_npy",
+        "--encode_official_maestro")
+    if "encoder: native (" not in printed:
+        fail(f"cli.encode did not run the native encoder: {printed}")
+    corpus = _corpus_stats(data)
+    want = {"train": CODEC_PIECES["train"] * 35,
+            "valid": CODEC_PIECES["valid"], "test": CODEC_PIECES["test"]}
+    if {k: corpus[k]["pieces"] for k in want} != want:
+        fail(f"cli.encode wrote {corpus}, expected {want} pieces")
+    exact = _codec_exact(midi, data)
+
+    cfg = _train_cfg_file(work, "codec.yml", **CODEC_TRAIN)
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    trainer = tcli.main(["--data_dir", data, "--cfg", cfg, "--work_dir",
+                         os.path.join(work, "run")])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_native.LAUNCHES)
+    log = _train_log(trainer.work_dir)
+    if not log["val_nll"] or not all(math.isfinite(x) for x in
+                                     log["val_nll"] + [s["nll"] for s in
+                                                       log["train"]]):
+        fail(f"training on the MIDI-made corpus logged no finite NLL: {log}")
+
+    prefix = os.path.join(data, "valid", "p0000.npy")
+    common = ["--model_directory", trainer.work_dir, "--checkpoint_name",
+              "checkpoint_last", "--output_base", os.path.join(work, "gen"),
+              "--memory_length", "4146", "--generation_length",
+              str(GEN_LENGTH), "--num_conditional_tokens", str(CODEC_PREFIX),
+              "--device", "cuda:0", *CODEC_SAMPLING]
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    runs = bcli.main([*common, "--prefix", prefix]) + bcli.main(common)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    gen_launches = dict(_native.LAUNCHES)
+
+    launches = {k: train_launches[k] + gen_launches[k] for k in gen_launches}
+    for name, counts, keys in (
+            ("cli.train", train_launches,
+             ("xl_attn_fwd_v2", "xl_attn_bwd_v2", "xl_attn_fwd_v2_tc",
+              "xl_attn_bwd_v2_tc")),
+            ("cli.batch_generate", gen_launches,
+             ("xl_attn_fwd_v2", "xl_attn_fwd_v2_tc", "generate_chunk",
+              "generate_chunk_tc"))):
+        for k in keys:
+            if counts[k] == 0:
+                fail(f"{name} on the MIDI-made corpus never launched {k}")
+
+    repo = PerformanceEventRepo()
+    vocab = set(repo.events_to_ids)
+    generated, passes = [], []
+    for r in runs:
+        primed = r["tag"].startswith("p0000")
+        for fp in r["summary"]["files"]:
+            with open(fp) as f:
+                toks = [l.strip() for l in f if l.strip()]
+            want_len = GEN_LENGTH + (CODEC_PREFIX if primed else 0)
+            if len(toks) != want_len or not set(toks) <= vocab:
+                fail(f"{fp}: {len(toks)} tokens (expected {want_len}) or a "
+                     "token outside the vocab")
+        if len(r["midi"]) != len(r["summary"]["files"]):
+            fail(f"batch_generate wrote {r['midi']} for "
+                 f"{r['summary']['files']}")
+        for m in r["midi"]:
+            n = fixed_point_passes(repo, m, work)
+            if n is None:
+                fail(f"{m}: decode -> encode reached no fixed point in 5 "
+                     "passes")
+            passes.append(n)
+        generated.append({
+            "tag": r["tag"], "files": len(r["summary"]["files"]),
+            "tokens": r["summary"]["tokens"],
+            "generate_s": r["summary"]["generate_seconds"],
+            "tokens_per_s": r["summary"]["tokens"]
+            / r["summary"]["generate_seconds"]})
+    if len(passes) != 4:
+        fail(f"batch_generate wrote {len(passes)} MIDI files, expected 4")
+
+    steady = [s["tokens_per_s"] for s in log["train"][1:]]
+    entropy = corpus["train"]["unigram_entropy"]
+    res = {"seconds": time.perf_counter() - t_start, "seed": CODEC_SEED,
+           "corpus": corpus, "corpus_write_s": corpus_s,
+           "encode_cli_s": encode_s, "encode_cli_pieces":
+           sum(CODEC_PIECES.values()), "encode_cli_files": sum(want.values()),
+           "encode_cli_tokens": sum(corpus[k]["tokens"] for k in want),
+           **exact, "train_overrides": CODEC_TRAIN, "train_s": train_s,
+           "train_steps": trainer.train_step_num,
+           "train_tokens_per_s_logged": [s["tokens_per_s"]
+                                         for s in log["train"]],
+           "train_tokens_per_s_steady": sum(steady) / max(1, len(steady)),
+           "train_nll_logged": [s["nll"] for s in log["train"]],
+           "val_nll": log["val_nll"], "test_nll": log["test_nll"],
+           "train_unigram_entropy": entropy,
+           "log_vocab": corpus["log_vocab"],
+           "val_nll_below_unigram_entropy": log["val_nll"][-1] < entropy,
+           "generate_s": generate_s, "generated": generated,
+           "midi_files": len(passes), "fixed_point_passes": passes,
+           "launches": {"train": train_launches, "generate": gen_launches}}
+    phase("main_path.codec", **res)
+    return launches
 
 
 # Card kernel path vs CPU plain path, two fp32 steps (check_train_reference).

@@ -42,7 +42,13 @@ assert {"transformer_gan_torch.bert.mlm", "transformer_gan_torch.bert.tokenizer"
         "transformer_gan_torch.cli.bert_pretrain",
         "transformer_gan_torch.metrics.bleu",
         "transformer_gan_torch.metrics.classifier",
-        "transformer_gan_torch.metrics.bert_score"} <= set(names), names
+        "transformer_gan_torch.metrics.bert_score",
+        "transformer_gan_torch.data.codec", "transformer_gan_torch.data.native",
+        "transformer_gan_torch.data.midi", "transformer_gan_torch.data.sequences",
+        "transformer_gan_torch.data.performance",
+        "transformer_gan_torch.cli.encode",
+        "transformer_gan_torch.cli.batch_generate",
+        "transformer_gan_torch.tools.make_synth_corpus"} <= set(names), names
 assert "sklearn" not in sys.modules
 print(len(names))
 """
@@ -104,10 +110,12 @@ def test_port_vocab_is_its_own_copy():
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
-    """Without a card, Trainer, cli.train, cli.generate, MlmTrainer and
-    cli.bert_pretrain raise unless the caller passes the CPU."""
+    """Without a card, Trainer, cli.train, cli.generate,
+    cli.batch_generate, MlmTrainer and cli.bert_pretrain raise unless the
+    caller passes the CPU."""
     from transformer_gan_torch import _native
     from transformer_gan_torch.bert.mlm import MlmTrainer
+    from transformer_gan_torch.cli import batch_generate as bcli
     from transformer_gan_torch.cli import bert_pretrain
     from transformer_gan_torch.cli import generate as gcli
     from transformer_gan_torch.cli import train as tcli
@@ -127,6 +135,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     icfg.OUTPUT.output_txt_directory = str(tmp_path / "out")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gcli.main(icfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bcli.main(["--model_directory", str(tmp_path / "model"),
+                   "--output_base", str(tmp_path / "gen")])
     from transformer_gan_torch.config import PACKAGED_VOCAB
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MlmTrainer(str(tmp_path / "data"), str(tmp_path / "bert"),
