@@ -84,7 +84,21 @@ Phases, one line each; any failure exits non-zero:
    in turns (numbers.gan_ppo), and the metrics' generated tokens/s by wave
    width, K3's gumbel chunk against its plain version and bound, the eval's
    seconds by part and at the shipped 640 / 2560 / 256 samples
-   (numbers.metrics).
+   (numbers.metrics);
+9. main path, data parallel (main_path.data_parallel): the training CLI
+   under ``torchrun --nproc_per_node 1`` (NCCL, world 1) for 10 steps, an
+   eval and a --restart for 10 more, bitwise equal to the CLI without
+   torchrun; two gloo ranks sharing the card (NCCL refuses two ranks on one
+   device) each take 64 rows of two fp32 MLE steps at the global B 128 and
+   32 of a cnn dis and gen update at the global B 64, held against one
+   process on the same global batches; K1f, K1b, K4 / K5 and K6 / K7 must
+   launch on each rank; on a machine with N > 1 cards also the CLI under
+   ``torchrun --nproc_per_node N`` (B 128 a card, a restart) and N NCCL
+   ranks, one a card, held against one process as the two are; then the
+   bf16 MLE step's ms at one rank, at two sharing the card (and at N, one a
+   card) and one all-reduce of the flat fp32 gradient on gloo and on NCCL
+   (numbers.data_parallel);
+10. numbers, as listed under 7 and 8.
 
 The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -262,7 +276,10 @@ def main() -> None:
         _native, mle_run, bert_ckpt)
     run_bert_score(pieces, bert_ckpt)
 
-    # 9. numbers
+    # 9. main path, data parallel: torchrun at world 1, two ranks on the card
+    dp_launches = run_data_parallel_path(_native, card)
+
+    # 10. numbers
     numbers = measure(kc, card)
     numbers.update(measure_train(kc, card))
     numbers.update(measure_gan(kc, card))
@@ -278,7 +295,8 @@ def main() -> None:
     paths = {"generate": summaries["launches"], "train": train_launches,
              "codec": codec_launches,
              "gan": gan_launches, "gan_bert": span_launches,
-             "ppo": ppo_launches, "metrics": metrics_launches}
+             "ppo": ppo_launches, "metrics": metrics_launches,
+             "data_parallel": dp_launches}
     launches = {k: sum(p[k] for p in paths.values()) for k in _native.LAUNCHES}
     by_path = {k: {n: p[k] for n, p in paths.items()} for k in _native.LAUNCHES}
 
@@ -2330,6 +2348,271 @@ def _clf_blocks(n_pieces: int) -> int:
     n = n_pieces * (METRICS_SEQ // 128)
     k = int(0.8 * n)
     return min(k, 5000) + min(n - k, 1000)
+
+
+# ---------------------------------------------------------------------------
+# Data parallel: torchrun at world 1 on NCCL, two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 10               # a run, then as many after its --restart
+DP_LAUNCH_NEED = (("xl_attn_fwd_v2",), ("xl_attn_bwd_v2",),
+                  ("decode_chunk", "decode_step"),
+                  ("chain_bwd_res", "chain_bwd_recompute"))
+
+
+def _cli_launches(run_dir: str, rank: int = 0) -> dict:
+    """The kernel launches rank ``rank`` of the training CLI logged, summed
+    over its runs."""
+    total = {}
+    with open(os.path.join(run_dir, f"train_rank{rank}.log")) as f:
+        for line in f:
+            if "Kernel launches: " in line:
+                for k, v in json.loads(line.split("Kernel launches: ", 1)[1]
+                                       ).items():
+                    total[k] = total.get(k, 0) + v
+    return total
+
+
+def _dp_cli_runs(work: str, data: str, cards: int) -> dict:
+    """The training CLI on the baseline config (B 128 a rank, M 1024, bf16)
+    for DP_STEPS steps and an eval, then --restart for DP_STEPS more and an
+    eval: under ``torchrun --nproc_per_node 1``, without torchrun, and, when
+    ``cards`` > 1, under ``torchrun --nproc_per_node cards``. Returns each
+    run's directory, logged lines, each rank's launches and seconds."""
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node"]
+    launchers = {"torchrun_nccl_world1": (torchrun + ["1"], 1),
+                 "one_process": ([sys.executable], 1)}
+    if cards > 1:
+        launchers[f"torchrun_nccl_world{cards}"] = (torchrun + [str(cards)],
+                                                    cards)
+    runs = {}
+    for name, (launcher, nproc) in launchers.items():
+        over = {**TRAIN_OVERRIDES, "batch_size": B_TRAIN * nproc,
+                "max_step": DP_STEPS, "log_interval": 5,
+                "eval_interval": DP_STEPS}
+        cfgs = (_train_cfg_file(work, f"{name}_first.yml", **over),
+                _train_cfg_file(work, f"{name}_restart.yml",
+                                **{**over, "max_step": 2 * DP_STEPS}))
+        base = os.path.join(work, name)
+        t0 = time.perf_counter()
+        run_dir = None
+        for cfg in cfgs:
+            args = ["--data_dir", data, "--cfg", cfg, "--work_dir",
+                    run_dir or base] + (["--restart"] if run_dir else [])
+            out = subprocess.run(
+                launcher + ["-m", "transformer_gan_torch.cli.train", *args],
+                cwd=ROOT, capture_output=True, text=True, timeout=400)
+            if out.returncode != 0:
+                fail(f"{name} training run: rc {out.returncode}\n"
+                     f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+            if run_dir is None:
+                (stamp,) = os.listdir(base)
+                run_dir = os.path.join(base, stamp)
+        runs[name] = {"run_dir": run_dir, "wall_s": time.perf_counter() - t0,
+                      "batch_size": B_TRAIN * nproc,
+                      "launches": [_cli_launches(run_dir, r)
+                                   for r in range(nproc)],
+                      **_train_log(run_dir)}
+    return runs
+
+
+def _dp_compare(ranks: list, ref_mle: dict, ref_gan: dict) -> dict:
+    """The ranks against one process on the same global batches: the
+    MLE steps (equal lr: the step's gradient over all rows), and the cnn
+    dis and gen update by the rule of the JAX suite's mesh test (the
+    critic's move equal, the generator's once scaled by the world size,
+    its lr being gen_lr / world), with the tolerances of the card-vs-CPU
+    checks (TRAIN_REF_TOL, kernel_check.GAN_REF_TOL); the ranks' gen update
+    starts from the one-process critic (``kernel_check.dp_rank``)."""
+    from transformer_gan_torch import kernel_check as kc
+    from transformer_gan_torch.parallel import sharding as psh
+    from transformer_gan_torch.train import optim as topt
+    world, tol, gtol = len(ranks), TRAIN_REF_TOL, kc.GAN_REF_TOL
+    layout = ref_mle["layout"]
+    res, ok = {"world": world}, True
+    mle = {"loss_rel_err": 0.0, "grad_norm_rel_err": 0.0,
+           "mu_rel_err": 0.0, "mu_leaf_max_rel_err": 0.0}
+    for k, ref in enumerate(ref_mle["metrics"]):
+        mets = [r["mle"]["metrics"][k] for r in ranks]
+        loss = sum(m["loss_weighted"] for m in mets)
+        mle["loss_rel_err"] = max(mle["loss_rel_err"], abs(
+            loss - ref["loss_weighted"]) / abs(ref["loss_weighted"]))
+        ok = ok and sum(m["tokens"] for m in mets) == ref["tokens"]
+        for m in mets:
+            mle["grad_norm_rel_err"] = max(mle["grad_norm_rel_err"], abs(
+                m["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"])
+        errs = kc._grad_errs(ranks[0]["mle"]["mu"][k], ref_mle["mu"][k],
+                             layout, gtol["leaf_floor"])
+        mle["mu_rel_err"] = max(mle["mu_rel_err"], errs["grad_rel_err"])
+        mle["mu_leaf_max_rel_err"] = max(mle["mu_leaf_max_rel_err"],
+                                         errs["grad_leaf_max_rel_err"])
+    sched = topt.make_schedule("inv_sqrt", 0.004, 100000, 0.0001, 4000)
+    lr = sum(0.004 * sched(k) for k in range(len(ref_mle["metrics"])))
+    diff = (ranks[0]["mle"]["flat"] - ref_mle["flat"]).abs()
+    mle.update(
+        lr_sum=lr, param_max_abs_err=float(diff.max()),
+        param_share_beyond=float((diff > gtol["move_rel"] * lr).float()
+                                 .mean()),
+        ranks_bitwise_equal=all(torch.equal(r["mle"]["flat"],
+                                            ranks[0]["mle"]["flat"])
+                                for r in ranks),
+        mem_max_abs_err=max(float((r["mle"]["mem_last"] - psh.rank_rows(
+            ref_mle["mem_last"], i, world, axis=2)).abs().max())
+                            for i, r in enumerate(ranks)))
+    ok = (ok and mle["loss_rel_err"] <= tol["loss_rel"]
+          and mle["grad_norm_rel_err"] <= tol["grad_norm_rel"]
+          and mle["mu_rel_err"] <= gtol["grad_rel"]
+          and mle["mu_leaf_max_rel_err"] <= gtol["grad_leaf_rel"]
+          and mle["param_max_abs_err"] <= 2 * lr
+          and mle["param_share_beyond"] <= gtol["flip_share"]
+          and mle["ranks_bitwise_equal"]
+          and mle["mem_max_abs_err"] <= tol["mem_abs"])
+    res["mle"] = mle
+    gan = ranks[0]["gan"]
+    g = {"loss_rel_err": max(abs(gan[n] - ref_gan[n]) / abs(ref_gan[n])
+                             for n in ("gen_loss", "dis_loss")),
+         "kinks": [r["gan"]["kinks"] for r in ranks]}
+    ok = ok and g["loss_rel_err"] <= gtol["loss_rel"]
+    for r in ranks:
+        kinks = r["gan"]["kinks"]
+        ok = (ok and kinks["kink_outside"] == 0
+              and len(kinks["kink_units"]) <= gtol["kink_units"])
+    for name, scale in (("dis", 1.0), ("gen", float(world))):
+        errs = kc._grad_errs(gan["grads"][name], ref_gan["grads"][name],
+                             ref_gan["layouts"][name], gtol["leaf_floor"])
+        lr = ref_gan["lr"][name]
+        diff = (gan["moves"][name] * scale - ref_gan["moves"][name]).abs()
+        share = float((diff > gtol["move_rel"] * lr).float().mean())
+        g[name] = {**errs, "lr": lr, "rank_lr": gan["lr"][name],
+                   "move_scale": scale, "move_max_abs_err": float(diff.max()),
+                   "move_share_beyond": share}
+        ok = (ok and errs["grad_rel_err"] <= gtol["grad_rel"]
+              and errs["grad_leaf_max_rel_err"] <= gtol["grad_leaf_rel"]
+              and share <= gtol["flip_share"] and float(diff.max()) <= 2 * lr
+              and abs(gan["lr"][name] * scale - lr) <= 1e-12 * lr)
+    g["ranks_bitwise_equal"] = all(
+        torch.equal(r["gan"]["moves"][n], gan["moves"][n])
+        for r in ranks for n in ("dis", "gen"))
+    res["gan"], res["ok"] = g, ok and g["ranks_bitwise_equal"]
+    return res
+
+
+def run_data_parallel_path(_native, card: str) -> dict:
+    """(a) the training CLI under torchrun at world 1 on NCCL, DP_STEPS steps,
+    an eval and a --restart for DP_STEPS more, bitwise equal to the CLI
+    without torchrun (an all-reduce over one rank is exact); (b) two gloo
+    ranks sharing the one card (NCCL refuses two ranks on one device): two
+    fp32 MLE steps at the global B 128 (64 rows a rank, tgt 128, M 1024) and
+    a cnn dis and gen update at the global B 64, each against one process
+    on the same global batches (``_dp_compare``), K1f, K1b, K4 / K5 and K6 /
+    K7 launched on each rank; then the bf16 MLE step's ms at one rank and at
+    two sharing the card, and one all-reduce of the flat fp32 gradient on
+    gloo (two ranks) and on NCCL (world 1). On a machine with N > 1 cards
+    also: (a) the CLI on N ranks at B 128 a card (no one-process run has
+    that global batch: held to finite NLLs, K1f and K1b on each rank, a
+    restart) and (b) N NCCL ranks, one a card, held against one process as
+    the two ranks are. Returns the launches of every rank of (a) and (b)."""
+    import math
+
+    from transformer_gan_torch import kernel_check as kc
+    from transformer_gan_torch.parallel import mesh as pmesh
+    from transformer_gan_torch.train.checkpoint import load_checkpoint
+    t_start = time.perf_counter()
+    cards = torch.cuda.device_count()
+    work = os.path.join(ROOT, "build", "chip_smoke", "data_parallel")
+    data = os.path.join(ROOT, "build", "chip_smoke", "train", "data")
+    os.makedirs(work, exist_ok=True)
+    runs = _dp_cli_runs(work, data, cards)
+    pa, oa, _ = load_checkpoint(runs["torchrun_nccl_world1"]["run_dir"],
+                                "checkpoint_last")
+    pb, ob, _ = load_checkpoint(runs["one_process"]["run_dir"],
+                                "checkpoint_last")
+    bitwise = (set(pa) == set(pb) and all(torch.equal(pa[k], pb[k])
+                                          for k in pa)
+               and torch.equal(oa.mu, ob.mu) and torch.equal(oa.nu, ob.nu)
+               and oa.count == ob.count == 2 * DP_STEPS)
+    dist_runs = {k: r for k, r in runs.items() if k.startswith("torchrun")}
+    finite = {}
+    for name, r in dist_runs.items():
+        _, opt, _ = load_checkpoint(r["run_dir"], "checkpoint_last")
+        finite[name] = (opt.count == 2 * DP_STEPS and len(r["train"]) == 4
+                        and all(math.isfinite(x["nll"]) for x in r["train"]))
+    for r in runs.values():
+        r["run_dir"] = os.path.relpath(r["run_dir"], ROOT)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ref_gan = kc._gan_update("float32", 64, "cuda:0")
+    record = ref_gan.pop("ff_pre")
+    torch.cuda.empty_cache()
+    # each set of ranks: (world, device, backend)
+    layouts = {"two_ranks_sharing_the_card": (2, "cuda:0", "gloo")}
+    if cards > 1:
+        layouts[f"{cards}_ranks_one_a_card"] = (cards, "cuda", "nccl")
+    ranks, ranks_s = {}, {}
+    for key, (world, device, backend) in layouts.items():
+        t0 = time.perf_counter()
+        ranks[key] = pmesh.spawn(kc.dp_rank, world, record,
+                                 ref_gan["dis_flat"], device=device,
+                                 backend=backend)
+        ranks_s[key] = time.perf_counter() - t0
+    del record
+    ref_mle = kc.dp_mle_steps(device="cuda:0")
+    cmp = {k: _dp_compare(r, ref_mle, ref_gan) for k, r in ranks.items()}
+    one_rank = kc.TrainCase(B=128, dtype="bfloat16")
+    one_rank.steps(2)
+    step_1 = 1e3 * one_rank.steps(5)
+    n_params = one_rank.state.flat.numel()
+    del one_rank
+    torch.cuda.empty_cache()
+    (nccl_ms,) = pmesh.spawn(kc.dp_allreduce_ms, 1, n_params,
+                             device="cuda:0", backend="nccl")
+    launches = dict.fromkeys(_native.LAUNCHES, 0)
+    missing = []
+    for name, r in dist_runs.items():
+        for i, rank_launches in enumerate(r["launches"]):
+            for k, v in rank_launches.items():
+                launches[k] += v
+            missing += [(name, i, k) for k in ("xl_attn_fwd_v2",
+                                               "xl_attn_bwd_v2")
+                        if not rank_launches.get(k)]
+    for key, rs in ranks.items():
+        for i, r in enumerate(rs):
+            for k in launches:
+                launches[k] += r["launches"][k]
+            missing += [(key, i, need) for need in DP_LAUNCH_NEED
+                        if not any(r["launches"][k] for k in need)]
+    res = {"cards": cards, "cli": runs,
+           "world1_bitwise_equal_to_one_process": bitwise,
+           "torchrun_nll_finite": finite, "ranks_wall_s": ranks_s,
+           "compare": cmp,
+           "rank_launches": {k: [r["launches"] for r in rs]
+                             for k, rs in ranks.items()},
+           "seconds": time.perf_counter() - t_start}
+    phase("main_path.data_parallel", **res)
+    if not bitwise:
+        fail("the torchrun world-1 run is not bitwise the one-process run")
+    if not all(finite.values()):
+        fail(f"a torchrun run logged a non-finite NLL: {finite}")
+    if missing:
+        fail(f"a rank launched none of these kernels: {missing}")
+    if not all(c["ok"] for c in cmp.values()):
+        fail("the ranks disagree with one process on the same global batch")
+    phase("numbers.data_parallel", card=card, dtype="bfloat16", B=B_TRAIN,
+          tgt=128, M=TRAIN_MEM,
+          mle_step_ms={"one_rank": step_1,
+                       **{k: [r["bf16_step_ms"] for r in rs]
+                          for k, rs in ranks.items()}},
+          allreduce={"fp32_elements": n_params,
+                     "mb": n_params * 4 / 1e6,
+                     **{f"{rs[0]['backend']}_{k}_ms":
+                        [r["allreduce_ms"] for r in rs]
+                        for k, rs in ranks.items()},
+                     "nccl_world1_ms": nccl_ms},
+          cli_tokens_per_s={k: [x["tokens_per_s"] for x in r["train"]]
+                            for k, r in runs.items()})
+    return launches
 
 
 if __name__ == "__main__":

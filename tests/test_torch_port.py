@@ -48,7 +48,10 @@ assert {"transformer_gan_torch.bert.mlm", "transformer_gan_torch.bert.tokenizer"
         "transformer_gan_torch.data.performance",
         "transformer_gan_torch.cli.encode",
         "transformer_gan_torch.cli.batch_generate",
-        "transformer_gan_torch.tools.make_synth_corpus"} <= set(names), names
+        "transformer_gan_torch.tools.make_synth_corpus",
+        "transformer_gan_torch.parallel.mesh",
+        "transformer_gan_torch.parallel.sharding",
+        "transformer_gan_torch.dryrun"} <= set(names), names
 assert "sklearn" not in sys.modules
 print(len(names))
 """
@@ -111,8 +114,8 @@ def test_port_vocab_is_its_own_copy():
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """Without a card, Trainer, cli.train, cli.generate,
-    cli.batch_generate, MlmTrainer and cli.bert_pretrain raise unless the
-    caller passes the CPU."""
+    cli.batch_generate, MlmTrainer, cli.bert_pretrain and the dry run raise
+    unless the caller passes the CPU."""
     from transformer_gan_torch import _native
     from transformer_gan_torch.bert.mlm import MlmTrainer
     from transformer_gan_torch.cli import batch_generate as bcli
@@ -146,6 +149,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         bert_pretrain.main(["--train_data_file", str(tmp_path / "data"),
                             "--output_dir", str(tmp_path / "bert"),
                             "--vocab_file", PACKAGED_VOCAB])
+    from transformer_gan_torch import dryrun
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["2"])
 
 
 # ---------------------------------------------------------------------------

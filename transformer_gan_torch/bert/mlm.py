@@ -5,7 +5,16 @@ the npy token corpus blocked into fixed windows, 80/10/10 masking at 15%,
 clip + Adam + weight decay with no decay on bias / LayerNorm + a cosine
 warmup schedule, periodic eval perplexity and rotated ``checkpoint-{step}``
 saves. Its checkpoints are what the GAN loads as its BERT critic
-(``train/checkpoint.graft_bert_trunk``). One device.
+(``train/checkpoint.graft_bert_trunk``).
+
+Data parallel under torchrun (JAX ``mlm.py`` on a mesh): ``batch_size`` is
+the global batch; every rank walks the same block order and takes its rows
+of each batch; it draws a step's masks and dropout from its own stream
+(``parallel/mesh.rank_seed``), while the evaluation's masks are drawn at the
+global shape, each rank taking its rows (``parallel/sharding.MlmRowDraws``),
+so that the score does not depend on the world size; the loss divides the rank's masked NLL sum by the masked count of the
+whole batch (all-reduced before the backward) and the flat gradient is
+all-reduced; rank 0 writes the checkpoints.
 
 Random numbers are inputs: an :class:`MlmDraws` hands out the masking draws
 and the dropout draws of each step from an explicit ``torch.Generator``;
@@ -25,8 +34,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._native import resolve_device
 from ..models import bert as bert_mod
+from ..parallel import mesh as pmesh
+from ..parallel import sharding as psh
 from ..train import checkpoint as ckpt
 from ..train import optim as topt
 from .tokenizer import MIDITokenizer
@@ -100,15 +110,18 @@ def mask_tokens(inputs: torch.Tensor, mask_token_id: int, vocab_size: int,
 
 
 def mlm_loss(params, cfg: bert_mod.BertConfig, batch, labels, *,
-             train: bool = False, dropout_u=None) -> torch.Tensor:
-    """Mean NLL over the masked positions (fp32)."""
+             train: bool = False, dropout_u=None,
+             count: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean NLL over the masked positions (fp32): their NLL sum over
+    ``count`` (default: their number in ``labels``; data parallel, the
+    number over all ranks' rows)."""
     hidden = bert_mod.bert_encode(params, cfg, input_ids=batch, train=train,
                                   dropout_u=dropout_u)
     logp = F.log_softmax(bert_mod.bert_mlm_logits(params, cfg, hidden).float(),
                          dim=-1)
     nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = labels >= 0
-    cnt = mask.sum().clamp(min=1)
+    cnt = (mask.sum() if count is None else count).clamp(min=1)
     return torch.where(mask, nll, 0.0).sum() / cnt
 
 
@@ -132,10 +145,11 @@ def cosine_warmup_schedule(warmup_steps: int, max_steps: int):
 
 
 class MlmTrainer:
-    """The JAX package's ``MlmTrainer`` on one device (the card unless
-    ``device`` is given): parameters as one flat fp32 vector under
-    ``train.optim.FlatLayout``, the optimizer chain clip, Adam, masked
-    weight decay, the cosine warmup, lr as a ``FusedOptimizer``."""
+    """The JAX package's ``MlmTrainer`` (the card unless ``device`` is
+    given; every rank of a torchrun world): parameters as one flat fp32
+    vector under ``train.optim.FlatLayout``, the optimizer chain clip,
+    Adam, masked weight decay, the cosine warmup, lr as a
+    ``FusedOptimizer``."""
 
     def __init__(self, data_dir: str, output_dir: str, vocab_file: str,
                  num_hidden_layers: int = 5, hidden_size: int = 768,
@@ -147,7 +161,11 @@ class MlmTrainer:
                  logging_steps: int = 100, save_steps: int = 1000,
                  save_total_limit: int = 2, eval_steps: int = 1000,
                  compute_dtype: str = "float32", device=None):
-        self.device = resolve_device(device)
+        self.mesh = pmesh.initialize_distributed(device)
+        self.device = self.mesh.device
+        if batch_size % self.mesh.world:
+            raise ValueError(f"batch_size {batch_size} must divide the "
+                             f"{self.mesh.world}-rank mesh")
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
         self.tokenizer = MIDITokenizer(vocab_file)
@@ -185,13 +203,18 @@ class MlmTrainer:
             weight_decay, layout=self.layout, eps=adam_epsilon,
             decay_mask=self.layout.mask(mlm_decay_mask))
         self.opt_state = self.optimizer.init(self.flat)
-        self.draws = MlmDraws(
-            torch.Generator(device=self.device).manual_seed(seed), self.device)
+        psh.broadcast_state(self.flat, self.opt_state)
+        self.draws = MlmDraws(torch.Generator(device=self.device).manual_seed(
+            pmesh.rank_seed(seed)), self.device)
         self.step = 0
         self.history: list[dict] = []
 
     def params(self) -> dict:
         return self.layout.unflatten(self.flat)
+
+    def _local(self, blocks: np.ndarray) -> torch.Tensor:
+        """The rank's rows of a global batch of blocks, on the device."""
+        return torch.from_numpy(psh.local_rows(blocks)).to(self.device)
 
     def _mask(self, batch, draws):
         tok = self.tokenizer
@@ -199,15 +222,17 @@ class MlmTrainer:
                            tok.pad_token_id, self.mlm_probability, draws)
 
     def train_step(self, batch: torch.Tensor, draws=None) -> torch.Tensor:
-        """One update on a [rows, block] id batch: mask, loss, gradient,
-        optimizer. ``draws``: an :class:`MlmDraws` (the trainer's own by
-        default). Returns the loss (on the device)."""
+        """One update on a [rows, block] id batch (the rank's rows): mask,
+        loss, gradient, optimizer. ``draws``: an :class:`MlmDraws` of those
+        rows (the trainer's own by default). Returns the rank's share of the
+        loss (on the device; the ranks' shares sum to the batch's loss)."""
         draws = draws or self.draws
         masked, labels = self._mask(batch, draws)
+        count = pmesh.all_reduce_sum_((labels >= 0).sum())
         flat = self.flat.detach().requires_grad_(True)
         loss = mlm_loss(self.layout.unflatten(flat), self.cfg, masked, labels,
-                        train=True, dropout_u=draws.dropout_u)
-        grad = torch.autograd.grad(loss, flat)[0]
+                        train=True, dropout_u=draws.dropout_u, count=count)
+        grad = pmesh.all_reduce_sum_(torch.autograd.grad(loss, flat)[0])
         self.opt_state = self.optimizer.update(self.flat, grad, self.opt_state)
         return loss.detach()
 
@@ -227,32 +252,45 @@ class MlmTrainer:
             shutil.rmtree(victim, ignore_errors=True)
 
     def save(self) -> str:
-        path = ckpt.save_bert_checkpoint(
-            self.output_dir, f"checkpoint-{self.step}", self.params(),
-            {"step": self.step,
-             "config": {"vocab_size": self.cfg.vocab_size,
-                        "num_hidden_layers": self.cfg.num_hidden_layers,
-                        "hidden_size": self.cfg.hidden_size}})
-        self._rotate_checkpoints()
-        return path
+        """Rank 0 writes ``checkpoint-{step}`` and rotates; every rank waits
+        for it. Returns its path."""
+        name = f"checkpoint-{self.step}"
+        pmesh.sync_global_devices("before_save")
+        if self.mesh.rank == 0:
+            ckpt.save_bert_checkpoint(
+                self.output_dir, name, self.params(),
+                {"step": self.step,
+                 "config": {"vocab_size": self.cfg.vocab_size,
+                            "num_hidden_layers": self.cfg.num_hidden_layers,
+                            "hidden_size": self.cfg.hidden_size}})
+            self._rotate_checkpoints()
+        pmesh.sync_global_devices("after_save")
+        return os.path.join(os.path.abspath(self.output_dir), name)
 
     @torch.no_grad()
     def evaluate(self) -> float:
-        """Mean masked NLL over the valid blocks (masks from a generator
-        seeded 0, no dropout)."""
+        """Mean over the valid batches of their masked NLL (no dropout;
+        masks from a generator seeded 0, drawn at the global shape, each
+        rank scoring its rows)."""
         if self.valid_blocks is None:
             return float("nan")
         draws = MlmDraws(torch.Generator(device=self.device).manual_seed(0),
                          self.device)
+        if self.mesh.world > 1:
+            draws = psh.MlmRowDraws(draws)
         params = self.params()
-        losses = []
+        parts = []
         for i in range(0, len(self.valid_blocks) - self.batch_size + 1,
                        self.batch_size):
-            batch = torch.from_numpy(
-                self.valid_blocks[i:i + self.batch_size]).to(self.device)
+            batch = self._local(self.valid_blocks[i:i + self.batch_size])
             masked, labels = self._mask(batch, draws)
-            losses.append(float(mlm_loss(params, self.cfg, masked, labels)))
-        return float(np.mean(losses)) if losses else float("nan")
+            count = pmesh.all_reduce_sum_((labels >= 0).sum())
+            parts.append(mlm_loss(params, self.cfg, masked, labels,
+                                  count=count))
+        if not parts:
+            return float("nan")
+        losses = pmesh.host_allreduce_sum(torch.stack(parts).cpu().numpy())
+        return float(np.mean(losses))
 
     def train(self) -> None:
         n = len(self.train_blocks)
@@ -263,13 +301,13 @@ class MlmTrainer:
             if pos + self.batch_size > n:
                 order = np.random.RandomState(self.step).permutation(n)
                 pos = 0
-            batch = torch.from_numpy(self.train_blocks[
-                order[pos:pos + self.batch_size]]).to(self.device)
+            batch = self._local(self.train_blocks[
+                order[pos:pos + self.batch_size]])
             pos += self.batch_size
             loss = self.train_step(batch)
             self.step += 1
             if self.step % self.logging_steps == 0:
-                loss_v = float(loss)
+                loss_v = float(pmesh.host_allreduce_sum([float(loss)])[0])
                 rate = self.logging_steps * self.batch_size / (time.time() - t0)
                 logging.info(
                     "MLM step %d/%d loss=%.4f ppl=%.2f (%.1f blk/s)",

@@ -8,7 +8,10 @@
 shards. Checkpoints land in ``OUT/checkpoint-{step}/`` (``params.pt`` and
 ``metadata.json``), the newest ``--save_total_limit`` kept; a GAN config's
 ``DISCRIMINATOR.BERT.model_path`` names one. Trains on the card;
-``--device cpu`` trains on the CPU. One device.
+``--device cpu`` trains on the CPU. ``torchrun --nproc_per_node N -m
+transformer_gan_torch.cli.bert_pretrain ...`` trains on N ranks, one card
+each, with the reference's DDP batch: ``--per_gpu_train_batch_size`` rows a
+rank, that times N a step; rank 0 logs and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import argparse
 import logging
 
 from ..bert.mlm import MlmTrainer
+from ..parallel import mesh as pmesh
 
 
 def parse_args(argv=None):
@@ -52,13 +56,15 @@ def parse_args(argv=None):
 
 def main(argv=None) -> MlmTrainer:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
+    mesh = pmesh.initialize_distributed(args.device)
+    logging.basicConfig(level=logging.INFO if mesh.rank == 0
+                        else logging.WARNING,
                         format="%(asctime)s %(levelname)s %(message)s")
     trainer = MlmTrainer(
         data_dir=args.train_data_file, output_dir=args.output_dir,
         vocab_file=args.vocab_file, num_hidden_layers=args.num_hidden_layers,
         hidden_size=args.hidden_size, block_size=args.block_size,
-        batch_size=args.per_gpu_train_batch_size,
+        batch_size=args.per_gpu_train_batch_size * mesh.world,
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
         adam_epsilon=args.adam_epsilon, warmup_steps=args.warmup_steps,
         max_steps=args.max_steps, max_grad_norm=args.max_grad_norm,

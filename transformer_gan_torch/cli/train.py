@@ -13,6 +13,12 @@ metadata; ``.gan.pt`` for a GAN run). ``--restart --work_dir
 W/<timestamp>`` resumes from ``checkpoint_last``. A config with a
 discriminator (``training_config/experiment_cnn.yml``) adds the GAN phases.
 Trains on the card; ``--device cpu`` trains on the CPU.
+
+``torchrun --nproc_per_node N -m transformer_gan_torch.cli.train ...``
+trains data parallel on N cards, one rank each (NCCL; gloo with
+``--device cpu``): ``TRAIN.batch_size`` is the global batch, each rank
+takes ``batch_size / N`` rows, rank 0 writes the run directory's
+``config.yml`` and checkpoints and each rank its ``train_rank{r}.log``.
 """
 from __future__ import annotations
 

@@ -79,7 +79,8 @@ TRAINING_DEFAULTS = {
             "softmax_dtype": "float32", "cache_kv": True, "remat": False,
             "profile_dir": "", "gan_parallel_chunks": False,
             "gan_decode_cache": "auto", "gan_fused_decode": "auto",
-            "gan_chain_bwd": "auto"},
+            "gan_chain_bwd": "auto", "mesh_shape": [-1],
+            "mesh_axes": ["data"]},
 }
 
 INFERENCE_DEFAULTS = {

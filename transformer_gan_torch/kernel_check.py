@@ -230,15 +230,20 @@ class TrainCase:
     ``fn`` is the step on the default route, ``fn_plain`` the step with
     every layer's attention on the plain ``rel_attention_kv``;
     ``steps(n, plain)`` runs n steps of one of them and returns host seconds
-    per step (ending in a device sync)."""
+    per step (ending in a device sync). Data parallel (the process's mesh),
+    ``B`` is the global batch and the state and batch hold the rank's
+    rows."""
 
     def __init__(self, B: int = 128, tgt: int = 128, M: int = 1024,
                  dtype: str = "bfloat16", dropout: float = 0.1,
                  device="cuda:0", seed: int = 2):
         import dataclasses
 
+        from .parallel import mesh as pmesh
+        from .parallel import sharding as psh
         from .train import optim as topt
         from .train import step as tstep
+        world = pmesh.current().world
         cfg = dataclasses.replace(baseline_config(dtype), dropout=dropout,
                                   dropatt=dropout)
         params = xl.init_xl_params(cfg, seed=seed, base_init=("normal", 0.02))
@@ -246,17 +251,18 @@ class TrainCase:
             "adam", 0.004, topt.make_schedule("inv_sqrt", 0.004, 100000,
                                               0.0001, 4000), 1.0,
             layout=topt.FlatLayout.of(params))
-        self.state = tstep.init_train_state(params, opt, cfg, 1, M, B, 1111,
-                                            device)
+        self.state = tstep.init_train_state(params, opt, cfg, 1, M,
+                                            B // world, 1111, device)
         self.cfg = cfg
         self.fn = tstep.make_mle_train_step(cfg, opt, 1, pad_id=1)
         self.fn_plain = tstep.make_mle_train_step(cfg, opt, 1, pad_id=1,
                                                   route="plain")
         gen = torch.Generator().manual_seed(seed)  # the same ids on any device
-        self.data = torch.randint(2, cfg.n_token, (1, tgt, B),
-                                  generator=gen).to(device)
-        self.reset = torch.zeros((1, B), dtype=torch.bool, device=device)
-        self.tokens = B * tgt
+        self.data = psh.batch_rows(torch.randint(
+            2, cfg.n_token, (1, tgt, B), generator=gen), axis=2).to(device)
+        self.reset = torch.zeros((1, B // world), dtype=torch.bool,
+                                 device=device)
+        self.tokens = B * tgt // world
 
     def steps(self, n: int, plain: bool = False) -> float:
         import time
@@ -691,7 +697,9 @@ class GanCase:
     ``route`` "plain" runs the sampler and chain plain versions on the same
     device. ``host_draws``: the random numbers of :class:`HostDraws` (the
     same on the card and the CPU) in place of the phases' own generator on
-    the device (what a training run draws, and what is timed)."""
+    the device (what a training run draws, and what is timed). Data
+    parallel (the process's mesh), ``B`` is the global batch: the rank takes
+    its rows of every real batch and of the host draws."""
 
     def __init__(self, dtype: str, B: int, device="cuda", route="kernel",
                  seed: int = 0, dis_steps: int = 1, chain_bwd: str = "auto",
@@ -704,8 +712,11 @@ class GanCase:
         import numpy as np
 
         from .config import training_config
+        from .parallel import mesh as pmesh
+        from .parallel import sharding as psh
         from .train import gan_loop
         from .train import optim as topt
+        world = pmesh.current().world
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         cfg = training_config(os.path.join(root, "training_config", config))
         cfg.merge(overrides or {})
@@ -720,19 +731,25 @@ class GanCase:
             layout=layout)
         state.params = lambda: layout.unflatten(state.flat)
         rng = np.random.RandomState(seed)
+        bc = cfg.DISCRIMINATOR.batch_chunk
 
         def batches():
             while True:
-                yield rng.randint(2, 310, (cfg.DISCRIMINATOR.tgt_len, B)), 0
+                yield psh.batch_rows(rng.randint(
+                    2, 310, (cfg.DISCRIMINATOR.tgt_len, B)), bc), 0
 
         trainer = types.SimpleNamespace(
-            xcfg=xcfg, vocab=range(310), state=state, n_devices=1,
+            xcfg=xcfg, vocab=range(310), state=state, n_devices=world,
             device=torch.device(device), dis_iter=batches)
         self.phases = gan_loop.GanPhases(trainer, cfg)
         self.phases.gcfg = dataclasses.replace(self.phases.gcfg, route=route)
         if host_draws:
             host = torch.Generator().manual_seed(seed + 1)
-            self.phases._draws = lambda: HostDraws(host, device)
+            if world > 1:
+                self.phases._draws = lambda: psh.GanRowDraws(
+                    HostDraws(host, device))
+            else:
+                self.phases._draws = lambda: HostDraws(host, device)
         self.state, self.B, self.cfg = state, B, cfg
 
 
@@ -876,13 +893,14 @@ def kink_stats(card, own, band: float) -> dict:
 
 
 def _gan_update(dtype: str, B: int, device, ff_pre=None, plant=False,
-                **case_kw) -> dict:
+                critic=None, **case_kw) -> dict:
     """One dis and one gen update of :class:`GanCase` (under PPO the gen
     phase's classifier update too, "clf"): logged losses, each phase's flat
-    gradient and parameter move, layouts and base lrs, and the gen update's
-    FF pre-activations (``ff_pre``: another run's, whose ReLU decisions it
-    takes at its kinks; ``plant``: the control's fault; see
-    ``GAN_REF_TOL``)."""
+    gradient and parameter move, the critic after its update, layouts and
+    base lrs, and the gen update's FF pre-activations (``ff_pre``: another
+    run's, whose ReLU decisions it takes at its kinks; ``plant``: the
+    control's fault; see ``GAN_REF_TOL``). ``critic``: the critic the gen
+    update starts from (by default the dis update's)."""
     case = GanCase(dtype, B, device, **case_kw)
     ph = case.phases
     flats = {"dis": ph.dis_flat, "gen": case.state.flat}
@@ -890,6 +908,10 @@ def _gan_update(dtype: str, B: int, device, ff_pre=None, plant=False,
         flats["clf"] = ph.disD_flat
     before = {k: v.detach().clone() for k, v in flats.items()}
     grads = {"dis": ph.dis_phase(0).cpu()}
+    dis_after = ph.dis_flat.detach().cpu()
+    if critic is not None:
+        with torch.no_grad():
+            ph.dis_flat.copy_(critic)
     if ph.gcfg.ppo:                  # the gen phase's classifier update
         classifier_phase = ph.classifier_phase
         ph.classifier_phase = lambda data_c: grads.setdefault(
@@ -902,8 +924,10 @@ def _gan_update(dtype: str, B: int, device, ff_pre=None, plant=False,
                "clf": ph.disD_layout}
     lrs = {"dis": ph.dis_opt.base_lr, "gen": ph.gen_opt.base_lr,
            "clf": ph.disD_opt.base_lr if ph.gcfg.ppo else None}
+    moves = {k: (flats[k].detach() - before[k]).cpu() for k in flats}
+    moves["dis"] = dis_after - before["dis"].cpu()
     return {"gen_loss": g, "dis_loss": d, "grads": grads, "ff_pre": ff.pre,
-            "moves": {k: (flats[k].detach() - before[k]).cpu() for k in flats},
+            "moves": moves, "dis_flat": dis_after,
             "layouts": {k: layouts[k] for k in flats},
             "lr": {k: lrs[k] for k in flats}}
 
@@ -985,6 +1009,101 @@ def check_gan_reference(B: int = 8, devices=("cuda:0", "cpu"),
               and flips <= tol["flip_share"] and float(diff.max()) <= 2 * lr)
     res["ok"] = ok
     return res
+
+
+# ---------------------------------------------------------------------------
+# Data parallel: the ranks' updates against one process's
+# ---------------------------------------------------------------------------
+
+def dp_mle_steps(B: int = 128, tgt: int = 128, M: int = 1024,
+                 steps: int = 2, device="cuda:0") -> dict:
+    """``steps`` fp32 MLE steps of :class:`TrainCase` (dropout 0) on the
+    rank's rows of seeded global batches (a reset row and a padded tail in
+    the last): each step's metrics and Adam first moment, the parameters
+    after, and the last layer's new memory slots (K and V of the rank's
+    rows), all on the CPU."""
+    from .parallel import sharding as psh
+    case = TrainCase(B=B, tgt=tgt, M=M, dtype="float32", dropout=0.0,
+                     device=device)
+    gen = torch.Generator().manual_seed(3)
+    out = {"metrics": [], "mu": []}
+    for i in range(steps):
+        data = torch.randint(2, 310, (1, tgt, B), generator=gen)
+        target = torch.randint(2, 310, (1, tgt, B), generator=gen)
+        reset = torch.zeros((1, B), dtype=torch.bool)
+        if i == steps - 1:
+            reset[0, 1] = True
+            target[0, -7:, 0] = 1           # pads on rank 0's rows only
+        d, t = (psh.batch_rows(x, axis=2).to(device)
+                for x in (data, target))
+        r = psh.batch_rows(reset, axis=1).to(device)
+        case.state, met = case.fn(case.state, d, t, r)
+        out["metrics"].append({k: float(v) for k, v in met.items()})
+        out["mu"].append(case.state.opt_state.mu.cpu())
+    new = case.state.mems[0]
+    out["flat"] = case.state.flat.detach().cpu()
+    out["mem_last"] = new.hids[-1, :, :, :, new.hids.shape[4] - new.count:
+                               ].cpu()
+    out["layout"] = case.state.layout
+    return out
+
+
+def dp_rank(mesh, ff_pre=None, critic=None, time_steps: int = 5) -> dict:
+    """What ``chip_smoke.py`` asks of each rank of its two-rank run on one
+    card: with the launch counters reset first, two fp32 MLE steps at the
+    training op-point (:func:`dp_mle_steps`, the global B 128) and one
+    fp32 cnn dis and gen update at the global B 64 (the gen update starting
+    from the one-process run's ``critic``, since Adam's first step moves a
+    weight of vanishing gradient by +-lr on a coin toss, and taking the ReLU
+    decisions of that run's record ``ff_pre`` at its kinks, the rank's rows
+    of it; see ``GAN_REF_TOL``), then the counters; then, timed, bf16 MLE steps at the training op-point (the
+    rank's rows of B 128) and the all-reduce of a flat fp32 gradient of the
+    baseline's size."""
+    import time
+
+    from . import _native
+    from .parallel import mesh as pmesh
+    from .parallel import sharding as psh
+    dev = mesh.device
+    ff_pre_rows = (None if ff_pre is None else
+                   [psh.local_rows(x, axis=2) for x in ff_pre])
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    mle = dp_mle_steps(device=dev)
+    gan = _gan_update("float32", 64, dev, ff_pre=ff_pre_rows,
+                      critic=None if critic is None else critic.to(dev))
+    torch.cuda.synchronize()
+    launches = dict(_native.LAUNCHES)
+    own = gan.pop("ff_pre")
+    gan["kinks"] = (kink_stats(ff_pre_rows, own, GAN_REF_TOL["kink_band"])
+                    if ff_pre_rows is not None else None)
+    gan.pop("layouts")
+    case = TrainCase(B=128, dtype="bfloat16", device=dev)
+    case.steps(2)
+    pmesh.sync_global_devices()
+    step_s = case.steps(time_steps)
+    del case
+    grad = torch.randn(mle["flat"].numel(), device=dev)
+    pmesh.all_reduce_sum_(grad)
+    torch.cuda.synchronize()
+    pmesh.sync_global_devices()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pmesh.all_reduce_sum_(grad)
+    torch.cuda.synchronize()
+    return {"mle": mle, "gan": gan, "launches": launches,
+            "bf16_step_ms": 1e3 * step_s,
+            "allreduce_ms": 1e3 * (time.perf_counter() - t0) / 3,
+            "allreduce_mb": grad.numel() * 4 / 1e6, "backend": mesh.backend}
+
+
+def dp_allreduce_ms(mesh, n: int, iters: int = 10) -> float:
+    """ms of one in-place all-reduce of an ``n``-element fp32 tensor on the
+    rank's card (CUDA events)."""
+    from .parallel import mesh as pmesh
+    t = torch.randn(n, device=mesh.device)
+    pmesh.all_reduce_sum_(t)
+    return time_ms(lambda: pmesh.all_reduce_sum_(t), iters=iters)
 
 
 # ---------------------------------------------------------------------------

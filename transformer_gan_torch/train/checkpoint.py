@@ -21,7 +21,9 @@ A checkpoint ``NAME`` in the run directory is three files: ``NAME.pt``, the
 parameters in ``convert.FORMAT`` (what ``cli.generate`` reads as
 ``MODEL.checkpoint_name: NAME``), ``NAME.opt.pt`` (the fused optimizer
 state) and ``NAME.json`` (metadata), plus ``NAME.gan.pt`` for a GAN run.
-Each is written to a temporary file and renamed into place.
+Each is written to a temporary file and renamed into place. Data parallel,
+rank 0 alone writes, between two barriers (``train/loop.Trainer._save``),
+and every rank restores from the same files.
 """
 from __future__ import annotations
 

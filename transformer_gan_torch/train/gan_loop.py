@@ -29,6 +29,14 @@ start or a restart (it is not checkpointed, as in the JAX package).
 
 The random numbers of a micro-batch come from :meth:`GanPhases._draws`, a
 ``models/gan.Draws`` over the phases' own generator on the device.
+
+Data parallel (``parallel/mesh``, JAX ``gan_loop.py`` on a mesh): the
+discriminator, dis_D and the three optimizer states stay replicated; each
+rank scores its rows of every GAN micro-batch (its own dis stream; P0 holds
+its rows) with its own random numbers (the phases' generator is seeded by
+``parallel/mesh.rank_seed``; rank 0 draws what one process draws); each
+phase's flat gradient, a mean over the rank's rows, is averaged over the
+ranks, which is the gradient over all rows; the logged losses too.
 """
 from __future__ import annotations
 
@@ -42,6 +50,8 @@ from ..config import is_null
 from ..models import bert as bert_mod
 from ..models import discriminator as disc_mod
 from ..models import gan as gan_mod
+from ..parallel import mesh as pmesh
+from ..parallel import sharding as psh
 from . import checkpoint as ckpt
 from . import optim as topt
 from . import step as tstep
@@ -88,16 +98,26 @@ class GanPhases:
     """Owns the discriminator (RelGAN CNN or BERT critic), the gen / dis
     optimizer states and the phase steps; wired into ``train/loop.Trainer``.
     The trainer provides ``xcfg``, ``vocab``, ``state`` (its flat generator
-    parameters), ``n_devices``, ``device`` and ``dis_iter``."""
+    parameters), ``n_devices``, ``device`` and ``dis_iter``; the ranks are
+    the process's mesh (``parallel/mesh.current``)."""
 
     def __init__(self, trainer, cfg):
         self.cfg = cfg
         self.trainer = trainer
         self.xcfg = trainer.xcfg
         self.device = trainer.device
+        self.mesh = pmesh.current()
         self.temperature = 1.0
         d = cfg.DISCRIMINATOR
         self.gcfg = gan_mod.GanConfig.from_cfg(cfg, len(trainer.vocab))
+        rows = cfg.TRAIN.batch_size // self.mesh.world
+        if (cfg.TRAIN.batch_size % self.mesh.world
+                or rows % self.gcfg.batch_chunk):
+            raise ValueError(
+                f"GAN micro-batch rows (batch_size {cfg.TRAIN.batch_size} / "
+                f"DISCRIMINATOR.batch_chunk {self.gcfg.batch_chunk}) must "
+                f"divide the {self.mesh.world}-rank mesh")
+        self.rows = rows
         if d.type == "bert":
             self.dis_cfg = _bert_dis_cfg(cfg, len(trainer.vocab))
             params = self._init_bert(self.dis_cfg, d.BERT.model_path,
@@ -126,10 +146,11 @@ class GanPhases:
         self.gen_opt_state = self.gen_opt.init(trainer.state.flat.detach())
         self._init_disD(cfg, len(trainer.vocab))
         self.generator = torch.Generator(device=self.device).manual_seed(
-            int(cfg.TRAIN.seed) + 777)
+            pmesh.rank_seed(int(cfg.TRAIN.seed) + 777))
         self._dis_stream = trainer.dis_iter()
         self.log_gen_loss = self.log_dis_loss = 0.0
         self.log_gen_num = self.log_dis_num = 0
+        self.broadcast()
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -160,7 +181,7 @@ class GanPhases:
         where the reference grafts the trunk into a fresh classifier."""
         self.disD_cfg = self.disD_layout = self.disD_flat = None
         self.disD_opt = self.disD_opt_state = None
-        self.P0 = torch.zeros(cfg.TRAIN.batch_size // self.gcfg.batch_chunk,
+        self.P0 = torch.zeros(self.rows // self.gcfg.batch_chunk,
                               device=self.device)
         self.P0_initialized = False
         if not self.gcfg.ppo:
@@ -188,8 +209,16 @@ class GanPhases:
         return self.disD_layout.unflatten(self.disD_flat)
 
     def _draws(self) -> gan_mod.Draws:
-        """The random numbers of the next micro-batch."""
+        """The random numbers of the next micro-batch, at the rank's
+        shape."""
         return gan_mod.Draws(self.generator, self.device)
+
+    def broadcast(self) -> None:
+        """Rank 0's discriminator, dis_D and optimizer states on every
+        rank."""
+        psh.broadcast_state(self.dis_flat, self.dis_opt_state,
+                            self.gen_opt_state, self.disD_flat,
+                            self.disD_opt_state)
 
     def _next_dis_batch(self) -> torch.Tensor:
         """[batch_chunk, tgt_len, bsz / batch_chunk] real ids."""
@@ -228,6 +257,7 @@ class GanPhases:
                          * gcfg.dis_loss_factor * self._scale())
                 grad += torch.autograd.grad(total, flat)[0]
                 dsum = dsum + losses["dis_loss"].detach()
+            pmesh.all_reduce_mean_(grad)
             self.dis_opt_state = self.dis_opt.update(self.dis_flat, grad,
                                                      self.dis_opt_state)
             # kept on the device until the log line
@@ -253,6 +283,7 @@ class GanPhases:
                 gen_params, params, self.disD_cfg, self.xcfg, gcfg, data_c[c],
                 self.temperature, self._draws())
             grad += torch.autograd.grad(loss, flat)[0]
+        pmesh.all_reduce_mean_(grad)
         self.disD_opt_state = self.disD_opt.update(self.disD_flat, grad,
                                                    self.disD_opt_state)
         return grad
@@ -290,6 +321,7 @@ class GanPhases:
             grad += torch.autograd.grad(total, state.flat)[0]
             gsum = gsum + losses["gen_loss"].detach()
         self.P0, self.P0_initialized = P0, True
+        pmesh.all_reduce_mean_(grad)
         self.gen_opt_state = self.gen_opt.update(state.flat, grad,
                                                  self.gen_opt_state)
         self.log_gen_loss = (self.log_gen_loss + gsum * gcfg.gen_loss_factor
@@ -301,10 +333,15 @@ class GanPhases:
 
     # ------------------------------------------------------------------
     def pop_log_stats(self) -> tuple[float, float]:
+        """The mean logged gen and dis losses since the last call, over the
+        ranks."""
         g = (float(self.log_gen_loss) / self.log_gen_num
              if self.log_gen_num else 0.0)
         d = (float(self.log_dis_loss) / self.log_dis_num
              if self.log_dis_num else 0.0)
+        if self.mesh.distributed:
+            g, d = (float(x) / self.mesh.world
+                    for x in pmesh.host_allreduce_sum([g, d]))
         self.log_gen_loss = self.log_dis_loss = 0.0
         self.log_gen_num = self.log_dis_num = 0
         return g, d

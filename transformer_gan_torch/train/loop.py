@@ -1,5 +1,4 @@
-"""Training loop on one device (counterpart of
-``transformer_gan_tpu/train/loop.py``).
+"""Training loop (counterpart of ``transformer_gan_tpu/train/loop.py``).
 
 Owns the run directory, seeding, the iterators, the step functions,
 logging (the JAX package's ``Train Step ...`` and ``Eval step ...`` lines),
@@ -19,9 +18,23 @@ the BERT classifier's held-out accuracy against the validation pieces.
 
 The device is the card: ``device=None`` means CUDA and raises without one;
 the CPU (the plain path) only when the caller passes ``"cpu"``.
+
+Data parallel under torchrun (``parallel/mesh``): each rank reads its own
+train and dis streams (``batch_size / world`` rows, seed ``seed + 1000
+rank``) and its share of the eval pieces; the generator's weights and every
+optimizer state stay replicated (broadcast from rank 0 after init and
+after a restore); the MLE step all-reduces its token counts and gradient;
+the MLE lr and the gen GAN lr are divided by the world size, as the JAX
+package divides them by its device count. The log's sums and the eval's
+NLL and token totals are host all-reduced; rank 0 writes the console line,
+``config.yml`` and the checkpoints (between barriers), every rank its own
+``train_rank{r}.log``. Every rank generates the metrics' pieces from the
+same stream, so every rank scores the same pieces (as every JAX process
+does).
 """
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
@@ -30,11 +43,13 @@ import time
 import numpy as np
 import torch
 
-from .._native import resolve_device
+from .. import _native
 from ..config import check_gan_config, is_null
 from ..data.dataset import MusicDataset
 from ..infer.sample import generate_tokens_gumbel, gumbel_draws
 from ..models import xl
+from ..parallel import mesh as pmesh
+from ..parallel import sharding as psh
 from ..utils.logging import logging_config
 from . import checkpoint as ckpt
 from . import optim as topt
@@ -72,43 +87,52 @@ class Trainer:
         self.cfg = cfg
         self.debug = debug
         self.save_all = save_all
-        self.device = resolve_device(device)
+        pmesh.initialize_distributed(device)
+        self.mesh = pmesh.make_mesh_from_cfg(cfg)
+        self.device = self.mesh.device
+        self.rank, self.world = self.mesh.rank, self.mesh.world
 
         if not restart:
-            stamp = time.strftime("%Y%m%d-%H%M%S", time.localtime())
+            # one stamp for every rank: rank 0's
+            stamp = pmesh.broadcast_object(
+                time.strftime("%Y%m%d-%H%M%S", time.localtime()))
             work_dir = os.path.join(work_dir, stamp)
         os.makedirs(work_dir, exist_ok=True)
         self.work_dir = work_dir
-        if not restart:
+        if not restart and self.rank == 0:
             # the generation CLI reads the run's config.yml
             with open(os.path.join(work_dir, "config.yml"), "w") as f:
                 f.write(cfg.dump())
-        logging_config(work_dir, "train_rank0")
+        logging_config(work_dir, f"train_rank{self.rank}",
+                       console=self.rank == 0)
 
         seed = cfg.TRAIN.seed
         np.random.seed(seed)
         torch.manual_seed(seed)
         self.dataset = MusicDataset(data_dir, cfg)
         self.vocab = self.dataset.vocab
-        self.batch_size = cfg.TRAIN.batch_size
-        if self.batch_size % cfg.TRAIN.batch_chunk:
-            raise ValueError("TRAIN.batch_size must divide into "
-                             "TRAIN.batch_chunk micro-chunks")
+        local_seed = seed + self.rank * 1000
+        if cfg.TRAIN.batch_size % (self.world * cfg.TRAIN.batch_chunk):
+            raise ValueError(
+                f"TRAIN.batch_size {cfg.TRAIN.batch_size} must divide into "
+                f"TRAIN.batch_chunk {cfg.TRAIN.batch_chunk} micro-chunks of "
+                f"equal rows on each of the {self.world} rank(s)")
+        self.batch_size = cfg.TRAIN.batch_size // self.world
         self.bsz_chunk = self.batch_size // cfg.TRAIN.batch_chunk
         self.train_iter = self.dataset.get_iterator(
             self.batch_size, cfg.TRAIN.tgt_length, split="train",
-            do_shuffle=True, seed=seed)
+            do_shuffle=True, seed=local_seed)
         self.val_iter = self.dataset.eval_iterator(
             cfg.EVALUATE.batch_size, cfg.EVALUATE.tgt_length, split="valid",
-            local_rank=0, world_size=1)
+            local_rank=self.rank, world_size=self.world)
         self.test_iter = self.dataset.eval_iterator(
             cfg.EVALUATE.batch_size, cfg.EVALUATE.tgt_length, split="test",
-            local_rank=0, world_size=1)
+            local_rank=self.rank, world_size=self.world)
         self.has_gan = not is_null(cfg.DISCRIMINATOR.type)
         if self.has_gan:
             self.dis_iter = self.dataset.get_dis_iterator(
                 self.batch_size, cfg.DISCRIMINATOR.tgt_len, split="train",
-                do_shuffle=True, seed=seed)
+                do_shuffle=True, seed=local_seed)
         elif cfg.DISCRIMINATOR.start_iter < cfg.TRAIN.max_step:
             raise ValueError("DISCRIMINATOR.start_iter < max_step but no "
                              "discriminator configured")
@@ -124,7 +148,7 @@ class Trainer:
                                                 params)
 
         # the reference's per-rank lr = global lr / number of devices
-        self.n_devices = 1
+        self.n_devices = self.world
         self.local_lr = cfg.TRAIN.lr / self.n_devices
         self.schedule = topt.make_schedule(
             cfg.TRAIN.scheduler, cfg.TRAIN.lr, cfg.TRAIN.max_step,
@@ -138,6 +162,7 @@ class Trainer:
         self.state = tstep.init_train_state(
             params, self.optimizer, self.xcfg, cfg.TRAIN.batch_chunk,
             cfg.TRAIN.mem_length, self.bsz_chunk, seed, self.device)
+        psh.broadcast_state(self.state.flat, self.state.opt_state)
         self.train_step_fn = tstep.make_mle_train_step(
             self.xcfg, self.optimizer, cfg.TRAIN.batch_chunk,
             self.vocab.pad_id, use_mle=cfg.TRAIN.use_mle,
@@ -175,13 +200,18 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _save(self, name: str, val_nll: float) -> None:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
         meta = {"train_step": int(self.train_step_num),
                 "best_val_loss": float(val_nll),
                 "vocab": self.vocab.all_tokens}
-        path = ckpt.save_checkpoint(
-            self.work_dir, name, self.state.params(), self.state.opt_state,
-            meta, gan=self.gan.ckpt_payload() if self.gan is not None else None)
-        logging.info("Saved checkpoint to %s", path)
+        pmesh.sync_global_devices("before_save")
+        if self.rank == 0:
+            path = ckpt.save_checkpoint(
+                self.work_dir, name, self.state.params(),
+                self.state.opt_state, meta,
+                gan=self.gan.ckpt_payload() if self.gan is not None else None)
+            logging.info("Saved checkpoint to %s", path)
+        pmesh.sync_global_devices("after_save")
 
     def _restore_last(self) -> None:
         logging.info("Restarting from %s",
@@ -199,6 +229,9 @@ class Trainer:
         self.train_step_num = int(meta.get("train_step", 0))
         self.best_val_nll = float(meta.get("best_val_loss", math.inf))
         self.state.step = self.train_step_num
+        psh.broadcast_state(self.state.flat, self.state.opt_state)
+        if self.gan is not None:
+            self.gan.broadcast()
 
     # ------------------------------------------------------------------
     def evaluate(self, eval_iter, mode: str = "eval"
@@ -225,8 +258,10 @@ class Trainer:
             comp = (t - total_nll) - y
             total_nll = t
             total_tokens = total_tokens + cnt
-        return (int(total_tokens), float(total_nll),
-                self._generation_metrics(mode))
+        # the ranks' sums (reference train.py all_reduce of the eval scalars)
+        tok, nll = pmesh.host_allreduce_sum([float(total_tokens),
+                                             float(total_nll)])
+        return int(tok), float(nll), self._generation_metrics(mode)
 
     @torch.no_grad()
     def _generate_tokens(self, num_samples: int, batch_size: int,
@@ -333,11 +368,12 @@ class Trainer:
                        else {k: log_acc[k] + metrics[k] for k in log_acc})
 
             if self.train_step_num % log_interval == 0:
-                loss_w = float(log_acc["loss_weighted"])  # waits for the device
-                tokens = int(log_acc["tokens"])
-                gnorm = float(log_acc["grad_norm"])
+                # waits for the device; sums over the ranks
+                loss_w, tokens, gnorm = pmesh.host_allreduce_sum(
+                    [float(log_acc["loss_weighted"]),
+                     float(log_acc["tokens"]), float(log_acc["grad_norm"])])
                 log_acc = None
-                nll = loss_w / max(tokens, 1)
+                nll = loss_w / max(tokens, 1.0)
                 gan_stats = (self.gan.pop_log_stats() if self.gan is not None
                              else (0.0, 0.0))
                 elapsed = time.time() - log_start
@@ -359,6 +395,9 @@ class Trainer:
                 logging.info("-" * 100)
                 logging.info("End of training")
                 break
+        # which kernels this process went through (_native.LAUNCHES)
+        logging.info("Kernel launches: %s", json.dumps(
+            {k: v for k, v in _native.LAUNCHES.items() if v}))
 
     # ------------------------------------------------------------------
     def final_best_eval(self) -> float:

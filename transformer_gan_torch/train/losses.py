@@ -5,11 +5,20 @@ the eight families (standard, JS, KL, hinge, wgan(-gp), tv, rsgan(-gp),
 ppo(-gp)), the beta annealing policies ``get_fixed_temperature`` and the
 WGAN-GP ``gradient_penalty``, whose double backward is
 ``torch.autograd.grad(create_graph=True)``.
+
+Data parallel, each rank holds an equal share of the rows and every loss
+is a mean over its rows, so the mean of the ranks' losses (and of their
+gradients, which the phases average) is the loss over all rows. Only
+PPO's weights W, a softmax over the rows, read the other ranks' rows
+(:func:`row_softmax_weights`). The gradient penalty is per row, and so are
+PPO's ratio and P0.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel import mesh as pmesh
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -17,6 +26,19 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     logits = logits.float()
     return torch.mean(torch.clamp(logits, min=0) - logits * targets
                       + torch.log1p(torch.exp(-logits.abs())))
+
+
+def row_softmax_weights(d: torch.Tensor) -> torch.Tensor:
+    """n * softmax(d) over the rows (axis 0) of every rank, detached, in
+    fp32; n counts them all."""
+    d = d.detach().float()
+    world = pmesh.current().world
+    if world == 1:
+        return d.shape[0] * torch.softmax(d, 0)
+    top = pmesh.all_reduce_max_(d.amax(0))
+    e = torch.exp(d - top)
+    total = pmesh.all_reduce_sum_(e.sum(0))
+    return (d.shape[0] * world) * e / total
 
 
 def get_losses(d_out_real: torch.Tensor, d_out_fake: torch.Tensor,
@@ -51,7 +73,7 @@ def get_losses(d_out_real: torch.Tensor, d_out_fake: torch.Tensor,
         d_loss = bce_with_logits(d_out_real - d_out_fake, ones_r)
         g_loss = bce_with_logits(d_out_fake - d_out_real, ones_f)
     elif "ppo" in loss_type:
-        W = d_out_fake.shape[0] * torch.softmax(d_out_fake.float(), 0).detach()
+        W = row_softmax_weights(d_out_fake)
         d_loss = torch.mean(W * d_out_fake - d_out_real)
         g_loss = -torch.mean(d_out_fake)
     else:

@@ -7,6 +7,14 @@ the gradient of one flat fp32 parameter vector, then the fused optimizer on
 that vector. Loss semantics match the reference: each chunk's loss is its
 pad-masked mean NLL divided by ``batch_chunk`` (0 when no token counts), and
 gradients are summed over chunks.
+
+Data parallel (``parallel/mesh``), each rank holds its rows of every
+micro-batch and the step keeps the JAX package's semantics on a mesh: a
+micro-batch's masked NLL sum is divided by the token count of the whole
+global micro-batch (the counts are all-reduced before the backward; a mean
+of per-rank means, what the reference's DDP computes, differs under pads),
+and the flat gradient is all-reduced once before the norm and the clip.
+Each rank draws its dropout from its own stream.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import numpy as np
 import torch
 
 from ..models import xl
+from ..parallel import mesh as pmesh
 from .optim import FlatLayout, FusedOptimizer, FusedOptState, global_grad_norm
 
 # Per-step generators are seeded from (run seed, step), so a restarted run
@@ -69,41 +78,52 @@ def step_generator(seed: int, step: int) -> torch.Generator:
         (int(seed) * _SEED_STRIDE + int(step)) % (2 ** 63))
 
 
+def chunk_seeds(seed: int, step: int, batch_chunk: int) -> list[int]:
+    """The dropout seeds of the step's micro-chunks on this rank, from the
+    step's generator of the rank's seed (``parallel/mesh.rank_seed``): every
+    rank has its own stream, and rank 0's is the one-process run's."""
+    return torch.randint(0, 2 ** 62, (batch_chunk,), generator=step_generator(
+        pmesh.rank_seed(seed), step)).tolist()
+
+
 def make_mle_train_step(xcfg: xl.XLConfig, optimizer: FusedOptimizer,
                         batch_chunk: int, pad_id: int, use_mle: bool = True,
                         same_length: bool = False, route: str | None = None):
     """fn(state, data [C, tgt, bsz_c], target [C, tgt, bsz_c],
     reset [C, bsz_c]) -> (state, metrics); inputs are tensors on the
-    state's device, chunked with ``chunk_batch`` / ``chunk_rows``. Metrics
-    are device scalars: ``loss_weighted`` (sum over chunks of mean * tokens),
-    ``tokens`` and the pre-clip ``grad_norm``. Dropout is drawn from
-    generators seeded by (state.seed, state.step) (see ``xl.xl_forward``);
-    ``route`` forces the attention route (``xl.xl_forward``)."""
+    state's device, chunked with ``chunk_batch`` / ``chunk_rows`` (the
+    rank's rows when data parallel). Metrics are device scalars of the
+    rank's rows: ``loss_weighted`` (the masked NLL sum), ``tokens`` and the
+    pre-clip ``grad_norm`` of the all-reduced gradient. Dropout is drawn
+    from generators seeded by (state.seed, state.step, rank)
+    (:func:`chunk_seeds`, ``xl.xl_forward``); ``route`` forces the attention
+    route (``xl.xl_forward``)."""
 
     def train_step(state: TrainState, data_c, target_c, reset_c):
-        gen = step_generator(state.seed, state.step)
-        chunk_seeds = torch.randint(0, 2 ** 62, (batch_chunk,),
-                                    generator=gen).tolist()
+        seeds = chunk_seeds(state.seed, state.step, batch_chunk)
+        # every micro-batch's token count over all ranks, before any backward
+        counts = pmesh.all_reduce_sum_((target_c != pad_id).sum(dim=(1, 2)))
         state.flat.grad = None
         loss_w = torch.zeros((), dtype=torch.float32, device=state.flat.device)
         tokens = torch.zeros((), dtype=torch.int64, device=state.flat.device)
         new_mems = []
         for c in range(batch_chunk):
             params = state.params()
-            chunk_gen = torch.Generator().manual_seed(chunk_seeds[c])
+            chunk_gen = torch.Generator().manual_seed(seeds[c])
             nll, mems_c = xl.forward_nll(
                 params, xcfg, data_c[c], target_c[c], reset_c[c],
                 state.mems[c], same_length=same_length, generator=chunk_gen,
                 route=route)
             mask = target_c[c] != pad_id
-            cnt = mask.sum()
-            # pad-masked mean; 0 (and no gradient) when no token counts
+            cnt = counts[c]
+            # pad-masked mean over the global micro-batch; 0 (and no
+            # gradient) when no token counts
             mean = torch.where(mask, nll, 0.0).sum() / cnt.clamp(min=1)
             (mean / batch_chunk).backward()
             loss_w = loss_w + mean.detach() * cnt
-            tokens = tokens + cnt
+            tokens = tokens + mask.sum()
             new_mems.append(mems_c)
-        grad = state.flat.grad
+        grad = pmesh.all_reduce_sum_(state.flat.grad)
         grad_norm = global_grad_norm(grad)
         opt_state = state.opt_state
         if use_mle:

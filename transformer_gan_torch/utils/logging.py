@@ -1,5 +1,7 @@
 """Experiment logging (copy of ``transformer_gan_tpu/utils/logging.py``):
-a log file in the work dir plus, optionally, the console."""
+a log file in the work dir plus, optionally, the console. Data parallel,
+each rank writes its own file (``train_rank{r}.log``) and only rank 0 the
+console."""
 
 from __future__ import annotations
 
