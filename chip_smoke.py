@@ -77,10 +77,12 @@ Phases, one line each; any failure exits non-zero:
    experiment_spanbert.yml under ppo (dis_D a second BERT from the MLM
    checkpoint), 3 steps and a restart (main_path.ppo), and the fp32 PPO
    update (dis, classifier, gen) of the card's kernel path against the
-   CPU's plain path (check.ppo_update); the training CLI's eval with BLEU,
+   CPU's plain path, the generator at REF_LAYERS (3) of its 6 layers, as
+   for the spanbert update (check.ppo_update); the training CLI's eval with BLEU,
    self-BLEU and the classifier on at gen_seq_len 2048 (64 / 256 / 64
-   samples; main_path.metrics) and bert_score's CLI on generated pieces
-   (main_path.bert_score); then the PPO phases' ms, kernel and plain path
+   samples; main_path.metrics; bert_score's CLI runs in phase 10 on the
+   pieces ``tools.gen_npy_samples`` writes from this run, as
+   main_path.bert_score); then the PPO phases' ms, kernel and plain path
    in turns (numbers.gan_ppo), and the metrics' generated tokens/s by wave
    width, K3's gumbel chunk against its plain version and bound, the eval's
    seconds by part and at the shipped 640 / 2560 / 256 samples
@@ -98,7 +100,24 @@ Phases, one line each; any failure exits non-zero:
    bf16 MLE step's ms at one rank, at two sharing the card (and at N, one a
    card) and one all-reduce of the flat fp32 gradient on gloo and on NCCL
    (numbers.data_parallel);
-10. numbers, as listed under 7 and 8.
+10. main path, the config variants (main_path.variants), each run with the
+   launch counts the JAX package's routes give it: note-status inputs
+   (``cli.train`` on experiment_baseline.yml, B 128, 8 steps, an eval and a
+   restart on K1f / K1b; ``cli.generate`` from its run directory with both
+   inference configs, 256 tokens at M 4146: K1f at the prime, no K3, which
+   takes no status inputs; two fp32 MLE steps with status, card against
+   CPU); the raw-hidden memory (``TPU.cache_kv: false``: 4 steps and an
+   eval, generation as above with the conditional run's incremental ==
+   batch check, the cnn GAN on the rolling sampler; no kernel launches; one
+   fp32 MLE step and one cnn dis and gen update, card against CPU); remat
+   (5 steps at dropout 0, the logged losses equal to a run without it);
+   ``TPU.profile_dir`` (16 steps, the trace holds K1f's and K1b's kernels);
+   ``tools.gen_npy_samples`` on the metrics run at its defaults (16 x 2048,
+   wave 4; K3) and bert_score on its directory;
+11. numbers, as listed under 7 and 8, and the variants' (numbers.variants:
+   the bf16 MLE step on the cache, on raw memory, with note status and with
+   remat, each with its peak memory; generation us/token at M 4146, K3
+   against the raw memory's rolling loop).
 
 The line before the last is a JSON object of the paths' kernels; the last
 line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -260,26 +279,30 @@ def main() -> None:
     # 7. main path, BERT pretraining and the spanbert GAN, through the CLIs
     bert_ckpt = run_bert_pretrain(_native)
     span_launches = run_gan_bert_path(_native, mle_run, bert_ckpt)
-    span_ref = kc.check_gan_reference(**spanbert_case(bert_ckpt))
-    phase("main_path.gan_bert_reference", **span_ref)
+    span_ref = kc.check_gan_reference(**ref_depth(spanbert_case(bert_ckpt)))
+    phase("main_path.gan_bert_reference", generator_layers=REF_LAYERS,
+          **span_ref)
     if not span_ref["ok"]:
         fail("kernel path and CPU plain path disagree on the spanbert GAN "
              "updates")
 
     # 8. main path, PPO at the spanbert op-point, and the quality metrics
     ppo_launches = run_ppo_path(_native, mle_run, bert_ckpt)
-    ppo_ref = kc.check_gan_reference(**ppo_case(bert_ckpt))
-    phase("check.ppo_update", **ppo_ref)
+    ppo_ref = kc.check_gan_reference(**ref_depth(ppo_case(bert_ckpt)))
+    phase("check.ppo_update", generator_layers=REF_LAYERS, **ppo_ref)
     if not ppo_ref["ok"]:
         fail("kernel path and CPU plain path disagree on the PPO updates")
-    metrics_launches, pieces, metrics_res = run_metrics_path(
+    metrics_launches, metrics_run, metrics_res = run_metrics_path(
         _native, mle_run, bert_ckpt)
-    run_bert_score(pieces, bert_ckpt)
 
     # 9. main path, data parallel: torchrun at world 1, two ranks on the card
     dp_launches = run_data_parallel_path(_native, card)
 
-    # 10. numbers
+    # 10. main path, the config variants (bert_score on gen_npy_samples)
+    variant_launches = run_variants_path(_native, mle_run, metrics_run,
+                                         bert_ckpt)
+
+    # 11. numbers
     numbers = measure(kc, card)
     numbers.update(measure_train(kc, card))
     numbers.update(measure_gan(kc, card))
@@ -287,6 +310,7 @@ def main() -> None:
     measure_gan_ppo(kc, card, bert_ckpt)
     numbers.update(measure_metrics(kc, card, mle_run, metrics_res))
     measure_bert_pretrain(card)
+    measure_variants(kc, card)
     trace = numbers["traces"]["K4"]
     numbers["K4_tc"].update(
         launches_per_token_traced=trace["launches_per_token"],
@@ -296,7 +320,7 @@ def main() -> None:
              "codec": codec_launches,
              "gan": gan_launches, "gan_bert": span_launches,
              "ppo": ppo_launches, "metrics": metrics_launches,
-             "data_parallel": dp_launches}
+             "data_parallel": dp_launches, "variants": variant_launches}
     launches = {k: sum(p[k] for p in paths.values()) for k in _native.LAUNCHES}
     by_path = {k: {n: p[k] for n, p in paths.items()} for k in _native.LAUNCHES}
 
@@ -1224,33 +1248,51 @@ def measure_k1b_fp32(kc) -> dict:
             "fp32_ms": ms, "fp32_plain_ms": plain_ms, "fp32_bound_ms": bound}
 
 
-def check_train_reference() -> dict:
-    """Two MLE steps at full width in fp32 (B 2, tgt 128, mem 256, dropout
-    0, a reset row in step 2): the kernel path on the card against the plain
-    path on the CPU, same batches and weights. Per step: the loss, the
-    pre-clip grad norm and every gradient leaf; after the steps the
-    parameters and the new memories (atol 1e-3: six layers, the kernel
-    check's K/V bound). Tolerances: ``TRAIN_REF_TOL``; the grad norm's rtol
-    allows for fp32 sums in another order over 13.7M gradients."""
+def check_train_reference(status: bool = False, cache_kv: bool = True,
+                          steps: int = 2) -> dict:
+    """``steps`` MLE steps at full width in fp32 (B 2, tgt 128, mem 256,
+    dropout 0, a reset row in step 2): the card's path (the kernels; plain
+    torch under raw-hidden memory, ``cache_kv`` False) against the plain
+    path on the CPU, same batches and weights; ``status``: with seeded
+    note-status vectors. Per step: the loss, the pre-clip grad norm and
+    every gradient leaf; after the steps the parameters and the new
+    memories (atol 1e-3: six layers, the kernel check's K/V bound).
+    Tolerances: ``TRAIN_REF_TOL``; the grad norm's rtol allows for fp32 sums
+    in another order over 13.7M gradients. An FF unit the two devices put
+    on two sides of its ReLU's kink for some token gives each another valid
+    gradient (an H100 read 1.2e-2 of layers.5.ff_w1's largest entry from
+    one with note-status inputs): the CPU takes the card's ReLU decision
+    where its own pre-activation lies within ``GAN_REF_TOL["kink_band"]``
+    of its row's largest, the GAN checks' rule (``kernel_check._FFPre`` on
+    ``xl.xl_forward``); a sign that differs outside the band fails, and so
+    do more than ``GAN_REF_TOL["kink_units"]`` units replayed."""
     from transformer_gan_torch import kernel_check as kc
 
     B, tgt, M = 2, 128, 256
     gen = torch.Generator().manual_seed(3)
     batches = [(torch.randint(2, 310, (1, tgt, B), generator=gen),
                 torch.randint(2, 310, (1, tgt, B), generator=gen),
-                torch.tensor([[False, i == 1]])) for i in range(2)]
-    out = {}
+                torch.tensor([[False, i == 1]]),
+                torch.rand((1, tgt, B, kc.STATUS_SLOTS), generator=gen) < 0.1
+                if status else None) for i in range(steps)]
+    out, pre = {}, {}
+    band = kc.GAN_REF_TOL["kink_band"]
     for device in ("cuda:0", "cpu"):
         case = kc.TrainCase(B=B, tgt=tgt, M=M, dtype="float32", dropout=0.0,
-                            device=device)
+                            device=device, status=status, cache_kv=cache_kv)
         mets, grads = [], []
-        for d, t, r in batches:
-            d, t, r = d.to(device), t.to(device), r.to(device)
-            grads.append(case.flat_grad(d, t, r).cpu())
-            case.state, met = case.fn(case.state, d, t, r)
-            mets.append({k: float(v) for k, v in met.items()})
+        with kc._FFPre(replay=pre.get("cuda:0"), band=band,
+                       passes=("xl_forward",)) as ff:
+            for d, t, r, sv in batches:
+                d, t, r = d.to(device), t.to(device), r.to(device)
+                sv = None if sv is None else sv.to(device)
+                grads.append(case.flat_grad(d, t, r, sv).cpu())
+                case.state, met = case.fn(case.state, d, t, r, sv)
+                mets.append({k: float(v) for k, v in met.items()})
+        pre[device] = ff.pre
         out[device] = (mets, grads, case.state.flat.detach().cpu(),
                        case.state.mems[0].hids.cpu())
+    kinks = kc.kink_stats(pre["cuda:0"], pre["cpu"], band)
     layout = case.state.layout
     (mk, gk, pk, hk), (mp, gp, pp, hp) = out["cuda:0"], out["cpu"]
     tol = TRAIN_REF_TOL
@@ -1285,12 +1327,17 @@ def check_train_reference() -> dict:
             "param_max_err_beyond_rtol": p_excess, "mem_max_abs_err": m_err,
             "kernel_loss": [m["loss_weighted"] for m in mk],
             "plain_loss": [m["loss_weighted"] for m in mp], "tol": tol,
+            "status": status, "cache_kv": cache_kv, "steps": steps,
+            **kinks,
             "ok": (loss_rel <= tol["loss_rel"]
                    and gn_rel <= tol["grad_norm_rel"]
                    and gn_self <= tol["grad_norm_rel"]
                    and leaf_rel <= tol["grad_leaf_rel"]
                    and p_excess <= tol["param_atol"]
-                   and m_err <= tol["mem_abs"])}
+                   and m_err <= tol["mem_abs"]
+                   and kinks["kink_outside"] == 0
+                   and len(kinks["kink_units"])
+                   <= kc.GAN_REF_TOL["kink_units"])}
 
 
 def measure_train(kc, card: str) -> dict:
@@ -1994,6 +2041,59 @@ def measure_bert_pretrain(card: str) -> None:
 
 
 
+def measure_variants(kc, card: str) -> None:
+    """The config variants' costs in bf16 on the card: the MLE step (B 128,
+    tgt 128, M 1024, dropout 0.1; host clock over 3 steps ending in a sync,
+    after one warm-up step) on the K/V cache (K1f / K1b), on the raw-hidden
+    memory (plain attention, QKV over [memory; segment]), with note-status
+    inputs and with remat, each with its peak device memory; and generation
+    us/token at M 4146 on a full ring (B 1 and 8, top-k; 64 tokens after a
+    32-token warm-up): the cache on K3 against the raw memory's rolling
+    loop."""
+    from transformer_gan_torch.infer import sample as sampling
+    from transformer_gan_torch.models import xl
+    B, tgt = 128, 128
+    line = {}
+    for name, kw in (("cached", {}), ("raw", {"cache_kv": False}),
+                     ("note_status", {"status": True}),
+                     ("remat", {"remat": True})):
+        case = kc.TrainCase(B=B, tgt=tgt, M=TRAIN_MEM, **kw)
+        case.steps(1)
+        torch.cuda.reset_peak_memory_stats()
+        sec = case.steps(3)
+        line[f"mle_{name}"] = {"ms": sec * 1e3, "tokens_per_s": B * tgt / sec,
+                               "peak_gib": torch.cuda.max_memory_allocated()
+                               / 2 ** 30}
+        del case
+        torch.cuda.empty_cache()
+    scfg = sampling.SamplingConfig(technique="topk", topk=32, temperature=0.95)
+    gen = torch.Generator(device="cuda:0").manual_seed(3)
+    for cache_kv in (True, False):
+        cfg = xl.XLConfig(**{**kc.BASELINE, "compute_dtype": "bfloat16",
+                             "cache_kv": cache_kv})
+        params = {k: v.cuda() for k, v in xl.init_xl_params(
+            cfg, seed=0, base_init=("normal", 0.02)).items()}
+        for lanes in (1, 8):
+            mems = xl.init_mems(cfg, kc.MEM_LEN, lanes, device="cuda:0")
+            mems = xl.XLMems(hids=torch.randn(
+                mems.hids.shape, generator=gen, device="cuda:0").to(
+                    mems.hids.dtype), count=kc.MEM_LEN)
+            first = torch.full((lanes,), 7, dtype=torch.long, device="cuda:0")
+            g = sampling.gumbel_noise((64, lanes, cfg.n_token), gen, "cuda:0")
+            sampling.sample_scan(params, cfg, scfg, first, mems, 32, g[:32])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sampling.sample_scan(params, cfg, scfg, first, mems, 64, g)
+            torch.cuda.synchronize()
+            key = "cached_K3" if cache_kv else "raw_rolling"
+            line[f"generate_{key}_B{lanes}"] = {
+                "us_per_token": (time.perf_counter() - t0) / 64 * 1e6,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    phase("numbers.variants", card=card, dtype="bfloat16", B=B, tgt=tgt,
+          M=TRAIN_MEM, gen_M=kc.MEM_LEN, **line)
+
+
 # ---------------------------------------------------------------------------
 # PPO at the spanbert op-point and the quality metrics
 # ---------------------------------------------------------------------------
@@ -2016,6 +2116,20 @@ METRICS_SAMPLES = {"bleu_num_samples": 64, "self_bleu_num_samples": 256,
                    "gen_num_samples": 64}
 SHIPPED_SAMPLES = {"bleu_num_samples": 640, "self_bleu_num_samples": 2560,
                    "gen_num_samples": 256}
+
+
+# The card-vs-CPU updates at the spanbert op-point (spanbert and PPO) run
+# the generator at REF_LAYERS of its 6 layers, its width unchanged: at 6
+# each took 70-180 s of the smoke on H100 hosts, most of it the CPU's plain
+# update, and the whole smoke read 1095 s of its 1200 on one (PERF.md).
+REF_LAYERS = 3
+
+
+def ref_depth(case: dict) -> dict:
+    """``case`` (GanCase's arguments) with the generator cut to
+    REF_LAYERS layers."""
+    case["overrides"]["MODEL"] = {"num_layers": REF_LAYERS}
+    return case
 
 
 def ppo_case(bert_ckpt: str) -> dict:
@@ -2109,13 +2223,11 @@ def run_metrics_path(_native, mle_run: str, bert_ckpt: str) -> tuple:
     the MLE run) for one step and an eval with BLEU, self-BLEU and the
     classifier on at gen_seq_len 2048 (METRICS_SAMPLES; the MLM
     checkpoint as the classifier's BERT): the eval line's scores finite,
-    self-BLEU below 1, K3 on the bf16 chain. Then 4 pieces from the
-    trained generator into npy files for bert_score. Returns (launch
-    counts, the pieces' directory, the eval's record)."""
+    self-BLEU below 1, K3 on the bf16 chain. Returns (launch counts, the
+    run directory, the eval's record)."""
     import math
     import re
 
-    import numpy as np
     from transformer_gan_torch.cli import train as tcli
     from transformer_gan_torch.train.loop import wave_width
     work = os.path.join(ROOT, "build", "chip_smoke", "metrics")
@@ -2161,21 +2273,20 @@ def run_metrics_path(_native, mle_run: str, bert_ckpt: str) -> tuple:
             or not all(x < 1.0 for x in self_bleu) or not 0 <= acc <= 1
             or launches["generate_chunk_tc"] == 0):
         fail(f"the metrics eval: {res}")
-    pieces = os.path.join(work, "pieces")
-    os.makedirs(pieces, exist_ok=True)
-    for i, piece in enumerate(tr._generate_tokens(4, 128, METRICS_SEQ)):
-        np.save(os.path.join(pieces, f"{i:03d}.npy"), piece.astype(np.int32))
-    return launches, pieces, res
+    return launches, tr.work_dir, res
 
 
-def run_bert_score(pieces: str, bert_ckpt: str) -> dict:
+def run_bert_score(pieces: str, bert_ckpt: str, n_files: int) -> dict:
     """``python -m transformer_gan_torch.metrics.bert_score`` on the
-    generated pieces with the MLM checkpoint: a finite negative mean."""
+    ``n_files`` generated pieces with the MLM checkpoint, the first 512
+    tokens of each (one block a file; 16 files at the CLI's 2048 took 50.8
+    s on an H100): a finite negative mean."""
     import math
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "transformer_gan_torch.metrics.bert_score",
-         "--model_path", bert_ckpt, "--input_dir", pieces],
+         "--model_path", bert_ckpt, "--input_dir", pieces,
+         "--len_tokens_evaluated", "512"],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     lines = out.stdout.strip().splitlines()
@@ -2184,10 +2295,245 @@ def run_bert_score(pieces: str, bert_ckpt: str) -> dict:
     phase("main_path.bert_score", **res)
     mean = (float(lines[-1].rsplit(":", 1)[1])
             if out.returncode == 0 and lines else float("nan"))
-    if not (math.isfinite(mean) and mean < 0 and "over 4 files" in lines[-1]):
+    if not (math.isfinite(mean) and mean < 0
+            and f"over {n_files} files" in lines[-1]):
         fail(f"bert_score on the generated pieces: {res}")
     res["mean"] = mean
     return res
+
+
+# ---------------------------------------------------------------------------
+# The config variants: note status, raw-hidden memory, remat, the profiler
+# trace, tools.gen_npy_samples
+# ---------------------------------------------------------------------------
+
+# Which kernels each variant's CLI runs must launch (JAX's own routes): the
+# note-status MLE on K1f / K1b; its generation K1f at the prime and no K3
+# (the kernel takes no status inputs); nothing at all on the raw-hidden
+# memory and the rolling GAN sampler (plain torch, as in the JAX package)
+KERNELS = ("xl_attn_fwd_v2", "xl_attn_bwd_v2", "xl_attn_fwd_v1",
+           "xl_attn_bwd_v1", "generate_chunk", "decode_chunk", "decode_step",
+           "chain_bwd_res", "chain_bwd_recompute")
+VARIANT_GEN_LENGTH = 256
+NO_DROPOUT = {"dropout": 0.0, "attention_dropout": 0.0}
+
+
+def _variant_train(_native, work: str, name: str, base: str = None,
+                   restart_steps: int = 0, **groups):
+    """The training CLI on ``base`` (the baseline config) with ``groups``
+    (as ``_train_cfg_file``) over the training phase's corpus; with
+    ``restart_steps``, then ``--restart`` for that many more. Returns (the
+    trainer, its launches, seconds, peak device bytes)."""
+    from transformer_gan_torch.cli import train as tcli
+    data = os.path.join(ROOT, "build", "chip_smoke", "train", "data")
+    cfg = _train_cfg_file(work, f"{name}.yml",
+                          base or "experiment_baseline.yml", **groups)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    tr = tcli.main(["--data_dir", data, "--cfg", cfg, "--work_dir",
+                    os.path.join(work, name)])
+    if restart_steps:
+        steps = tr.train_step_num + restart_steps
+        cfg2 = _train_cfg_file(work, f"{name}_restart.yml",
+                               base or "experiment_baseline.yml",
+                               **{**groups, "max_step": steps})
+        tr = tcli.main(["--data_dir", data, "--cfg", cfg2, "--work_dir",
+                        tr.work_dir, "--restart"])
+        if tr.train_step_num != steps:
+            fail(f"--restart of {name} reached step {tr.train_step_num}")
+    torch.cuda.synchronize()
+    return (tr, dict(_native.LAUNCHES), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def _variant_generate(_native, work: str, name: str, run_dir: str) -> dict:
+    """``cli.generate`` from a run directory with both inference configs
+    (M 4146, VARIANT_GEN_LENGTH tokens: 8 unconditional lanes, and the
+    conditional run with its debug check, incremental == batch). Returns
+    each run's record and the launches of both."""
+    from transformer_gan_torch.cli import generate as gcli
+    from transformer_gan_torch.config import PACKAGED_VOCAB, inference_config
+    vocab, _ = gcli.load_vocab(PACKAGED_VOCAB)
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    res = {}
+    for run, path, over in (
+            ("unconditional", "inference_unconditional.yml",
+             {"num_midi_files": 8, "debug": False}),
+            ("conditional_debug", "inference_conditional.yml",
+             {"num_midi_files": 1, "debug": True})):
+        c = inference_config(os.path.join("inference_config", path))
+        c.EVENT.vocab_file_path = PACKAGED_VOCAB
+        c.MODEL.model_directory = run_dir
+        c.MODEL.debug = over["debug"]
+        c.INPUT.num_midi_files = over["num_midi_files"]
+        c.OUTPUT.output_txt_directory = os.path.join(work, f"{name}_{run}")
+        c.GENERATION.generation_length = VARIANT_GEN_LENGTH
+        gen = torch.Generator(device="cuda:0").manual_seed(1111)
+        t0 = time.perf_counter()
+        summary = gcli.main(c, "cuda:0", gen)
+        torch.cuda.synchronize()
+        n_prefix = c.INPUT.num_conditional_tokens if over["debug"] else 0
+        for fp in summary["files"]:
+            with open(fp) as f:
+                toks = [l.strip() for l in f if l.strip()]
+            if (len(toks) != VARIANT_GEN_LENGTH + n_prefix
+                    or any(t not in vocab for t in toks)):
+                fail(f"{name} generation {fp}: {len(toks)} tokens")
+        res[run] = {"files": len(summary["files"]),
+                    "wall_s": time.perf_counter() - t0,
+                    "generate_s": summary["generate_seconds"],
+                    "tokens": summary["tokens"],
+                    "us_per_token": 1e6 * summary["generate_seconds"]
+                    / (summary["tokens"] / len(summary["files"]))}
+    res["launches"] = dict(_native.LAUNCHES)
+    return res
+
+
+def _need(label: str, launches: dict, positive=(), zero=()) -> None:
+    for k in positive:
+        if launches[k] == 0:
+            fail(f"{label} never launched {k}")
+    for k in zero:
+        if launches[k] != 0:
+            fail(f"{label} launched {k} {launches[k]} times (JAX's route runs "
+                 "no kernel there)")
+
+
+def run_variants_path(_native, mle_run: str, metrics_run: str,
+                      bert_ckpt: str) -> dict:
+    """main_path.variants: the config branches at full width through the
+    CLIs, each with the launch counts JAX's routes give it, and the card
+    against the CPU where the math differs from the kernel path's."""
+    import math
+
+    import numpy as np
+    from transformer_gan_torch import kernel_check as kc
+    from transformer_gan_torch.tools import gen_npy_samples
+    work = os.path.join(ROOT, "build", "chip_smoke", "variants")
+    os.makedirs(work, exist_ok=True)
+    t_start = time.perf_counter()
+    total = dict.fromkeys(_native.LAUNCHES, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # note status: MLE on K1f / K1b, a restart, generation without K3
+    tr, launches, wall, peak = _variant_train(
+        _native, work, "note_status", restart_steps=2,
+        **{**TRAIN_OVERRIDES, "append_note_status": True})
+    _need("the note-status run", launches,
+          positive=("xl_attn_fwd_v2", "xl_attn_bwd_v2", "xl_attn_fwd_v2_tc",
+                    "xl_attn_bwd_v2_tc"))
+    log = _train_log(tr.work_dir)
+    if not (log["val_nll"] and all(math.isfinite(x["nll"])
+                                   for x in log["train"])):
+        fail(f"the note-status run logged no finite NLL: {log}")
+    add(launches)
+    gen = _variant_generate(_native, work, "note_status", tr.work_dir)
+    _need("note-status generation", gen["launches"],
+          positive=("xl_attn_fwd_v2",),
+          zero=("generate_chunk", "generate_chunk_tc"))
+    add(gen["launches"])
+    ref = check_train_reference(status=True)
+    phase("main_path.variants.note_status", steps=tr.train_step_num,
+          vec_len=tr.xcfg.vec_len, wall_s=wall, peak_bytes=peak,
+          launches=launches, generate=gen, train_reference=ref, **log)
+    if not ref["ok"]:
+        fail("card and CPU disagree on the note-status MLE steps")
+
+    # raw-hidden memory: MLE, generation at M 4146, the cnn GAN on the
+    # rolling sampler; no kernel anywhere
+    tr, launches, wall, peak = _variant_train(
+        _native, work, "raw", **{**TRAIN_OVERRIDES, "max_step": 4,
+                                 "eval_interval": 4},
+        TPU={"cache_kv": False})
+    _need("the raw-memory run", launches, zero=KERNELS)
+    log = _train_log(tr.work_dir)
+    if tr.state.mems[0].hids.dim() != 4 or not log["val_nll"]:
+        fail(f"the raw-memory run: {log}")
+    add(launches)
+    gen_raw = _variant_generate(_native, work, "raw", tr.work_dir)
+    _need("raw-memory generation", gen_raw["launches"], zero=KERNELS)
+    add(gen_raw["launches"])
+    disc = {"dis_loss_freq": 1, "gen_loss_freq": 1}
+    gan_launches, gan_runs = _gan_cli_runs(
+        _native, "variants_gan", "experiment_cnn.yml", GAN_OVERRIDES, disc,
+        os.path.join(mle_run, "checkpoint_last"),
+        runs=(("rolling_raw", {"cache_kv": False}, None, ()),))
+    _need("the cnn GAN on raw memory", gan_launches, zero=KERNELS)
+    add(gan_launches)
+    ref = check_train_reference(cache_kv=False, steps=1)
+    gan_ref = kc.check_gan_reference(overrides={"TPU": {"cache_kv": False}})
+    phase("main_path.variants.raw", steps=tr.train_step_num, wall_s=wall,
+          peak_bytes=peak, launches=launches, generate=gen_raw,
+          gan=gan_runs, train_reference=ref, gan_reference=gan_ref, **log)
+    if not ref["ok"] or not gan_ref["ok"]:
+        fail("card and CPU disagree on the raw-memory MLE step or the "
+             "rolling GAN updates")
+
+    # remat: the logged losses equal a run without it at dropout 0
+    remat = {}
+    for on in (False, True):
+        tr, launches, wall, peak = _variant_train(
+            _native, work, f"remat_{on}",
+            **{**TRAIN_OVERRIDES, "max_step": 5, "log_interval": 1,
+               "eval_interval": 100},
+            MODEL=NO_DROPOUT, TPU={"remat": on})
+        remat[on] = {"nll": [x["nll"] for x in _train_log(tr.work_dir)["train"]],
+                     "wall_s": wall,
+                     "peak_bytes": peak, "launches": launches}
+        add(launches)
+    if (remat[True]["nll"] != remat[False]["nll"]
+            or len(remat[True]["nll"]) != 5):
+        fail(f"remat moved the logged losses: {remat}")
+    phase("main_path.variants.remat", **{f"remat_{k}": v
+                                         for k, v in remat.items()})
+
+    # the profiler trace of steps 10-15 holds K1f's and K1b's kernels
+    prof = os.path.join(work, "profile")
+    tr, launches, wall, _ = _variant_train(
+        _native, work, "profile",
+        **{**TRAIN_OVERRIDES, "max_step": 16, "eval_interval": 100},
+        TPU={"profile_dir": prof})
+    with open(os.path.join(prof, "trace_rank0.json")) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: sum(k in n for n in names) for k in (
+        "xl_attn_fwd_v2_tc_kernel", "xl_attn_bwd_v2_tc_rows",
+        "xl_attn_bwd_v2_tc_keys")}
+    add(launches)
+    phase("main_path.variants.profile", events=len(events),
+          kernel_names=len(names), found=found, wall_s=wall)
+    if not all(found.values()):
+        fail(f"the profiler trace lacks K1f / K1b: {found}")
+
+    # tools.gen_npy_samples at the JAX tool's defaults on the metrics run,
+    # then bert_score on its directory
+    pieces = os.path.join(work, "pieces")
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    n = gen_npy_samples.main(["--model_dir", metrics_run, "--out", pieces])
+    torch.cuda.synchronize()
+    npy = {"files": n, "wall_s": time.perf_counter() - t0,
+           "launches": dict(_native.LAUNCHES)}
+    arrs = [np.load(os.path.join(pieces, f"sample_{k:04d}.npy"))
+            for k in range(n)]
+    if (n != 16 or any(a.shape != (2048,) or a.dtype != np.int32 or a[0] != 0
+                       for a in arrs)):
+        fail(f"gen_npy_samples: {npy}")
+    _need("gen_npy_samples", npy["launches"],
+          positive=("generate_chunk", "generate_chunk_tc"))
+    add(npy["launches"])
+    phase("main_path.variants.gen_npy_samples", **npy)
+    score = run_bert_score(pieces, bert_ckpt, n)
+    phase("main_path.variants", launches=total, score_mean=score["mean"],
+          seconds=time.perf_counter() - t_start)
+    return total
 
 
 def measure_gan_ppo(kc, card: str, bert_ckpt: str) -> dict:
@@ -2300,12 +2646,15 @@ def measure_metrics(kc, card: str, mle_run: str, eval_res: dict) -> dict:
     real = clf["n_blocks"] - _clf_blocks(METRICS_SAMPLES["gen_num_samples"])
     blocks_ship = real + _clf_blocks(SHIPPED_SAMPLES["gen_num_samples"])
     scale = blocks_ship / clf["n_blocks"]
-    folder = os.path.join(ROOT, "build", "chip_smoke", "metrics", "pieces")
+    # the pieces tools.gen_npy_samples wrote from the metrics run (16)
+    folder = os.path.join(ROOT, "build", "chip_smoke", "variants", "pieces")
     pieces = [np.load(os.path.join(folder, f)).tolist()
               for f in sorted(os.listdir(folder))]
     # the shipped counts of 2048-token pieces: the generated ones rotated
-    bleu_hyps = [p[k:] + p[:k] for k in range(160) for p in pieces]
-    self_hyps = [p[k:] + p[:k] for k in range(640) for p in pieces]
+    n_bleu = SHIPPED_SAMPLES["bleu_num_samples"] // len(pieces)
+    n_self = SHIPPED_SAMPLES["self_bleu_num_samples"] // len(pieces)
+    bleu_hyps = [p[k:] + p[:k] for k in range(n_bleu) for p in pieces]
+    self_hyps = [p[k:] + p[:k] for k in range(n_self) for p in pieces]
     data = os.path.join(ROOT, "build", "chip_smoke", "train", "data", "valid")
     real_text = [np.load(os.path.join(data, f)).tolist()
                  for f in sorted(os.listdir(data))]

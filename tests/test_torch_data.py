@@ -86,9 +86,11 @@ def test_vocab_and_unported_inputs(corpus):
     assert v.idx_to_token(v.token_to_idx("TIME_SHIFT_100")) == "TIME_SHIFT_100"
     with pytest.raises(ValueError):
         BaseVocab(["<PAD>", "<S>"])
+    # note-status inputs run (their JAX parity: test_torch_note_status.py)
     _, tcfg = _cfgs(**{"TRAIN.append_note_status": True})
-    with pytest.raises(NotImplementedError):
-        MusicDataset(corpus, tcfg)
+    ds = MusicDataset(corpus, tcfg)
+    assert ds.vocab.vec_len == 88
+    assert next(ds.get_iterator(4, 7, seed=1)())[4].shape == (7, 4, 88)
 
 
 def test_training_defaults_match_jax():

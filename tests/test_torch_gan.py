@@ -270,9 +270,9 @@ def test_dis_losses_and_grads_match_jax(loss_type):
 
 
 def test_gan_config_refuses_unported():
-    """The rolling cache, the raw-hidden memory and an unknown
-    discriminator raise; cnn and bert pass, PPO (either discriminator's
-    loss) too."""
+    """An unknown discriminator raises; cnn and bert pass, PPO (either
+    discriminator's loss) too, and so do the rolling cache and the
+    raw-hidden memory, which route the GAN onto the rolling sampler."""
     from transformer_gan_torch.config import check_gan_config
     for dis_type, loss in (("cnn", "rsgan"), ("bert", "wgan-gp"),
                            ("cnn", "ppo"), ("bert", "ppo-gp")):
@@ -280,19 +280,69 @@ def test_gan_config_refuses_unported():
         cfg.DISCRIMINATOR.type = dis_type
         getattr(cfg.DISCRIMINATOR, dis_type.upper()).loss_type = loss
         check_gan_config(cfg)
-    for dis_type, key, value in (
-            ("rnn", "DISCRIMINATOR.type", "rnn"),
-            ("cnn", "TPU.gan_decode_cache", "rolling"),
-            ("bert", "TPU.cache_kv", False)):
+    cfg = training_config()
+    cfg.DISCRIMINATOR.type = "rnn"
+    with pytest.raises(NotImplementedError):
+        check_gan_config(cfg)
+    for dis_type, key, value in (("cnn", "gan_decode_cache", "rolling"),
+                                 ("bert", "cache_kv", False)):
         cfg = training_config()
         cfg.DISCRIMINATOR.type = dis_type
-        *groups, name = key.split(".")
-        node = cfg
-        for g in groups:
-            node = getattr(node, g)
-        setattr(node, name, value)
-        with pytest.raises(NotImplementedError):
-            check_gan_config(cfg)
+        setattr(cfg.TPU, key, value)
+        check_gan_config(cfg)
+        gcfg = tgan.GanConfig.from_cfg(cfg, V)
+        xcfg = txl.XLConfig.from_cfg(cfg, V)
+        assert not (xcfg.cache_kv and gcfg.decode_cache != "rolling")
+
+
+# ---------------------------------------------------------------------------
+# The GRU discriminator (inventory: no GAN route reaches it)
+# ---------------------------------------------------------------------------
+
+def test_gru_matches_jax():
+    """init_gru_params bit for bit, gru_logits without and with dropout
+    (JAX's draws) against the JAX package's, rtol 1e-5 / atol 1e-6."""
+    jcfg = jdisc.GruConfig(embedding_dim=12, hidden_dim=10, feature_dim=8)
+    tcfg = tdisc.GruConfig(embedding_dim=12, hidden_dim=10, feature_dim=8)
+    jp = jdisc.init_gru_params(jcfg, seed=3)
+    tp = tdisc.init_gru_params(tcfg, seed=3)
+    ref = flat_tree(jp)
+    assert set(tp) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(tp[k].numpy(), v, err_msg=k)
+    ids = np.random.RandomState(0).randint(0, V, (4, 9))
+    np.testing.assert_allclose(
+        tdisc.gru_logits(tp, tcfg, torch.from_numpy(ids)).numpy(),
+        np.asarray(jdisc.gru_logits(jp, jcfg, jnp.asarray(ids))),
+        rtol=1e-5, atol=1e-6)
+    key = jax.random.PRNGKey(2)
+    u = jax.random.uniform(key, (4, 8), jnp.float32)
+    np.testing.assert_allclose(
+        tdisc.gru_logits(tp, tcfg, torch.from_numpy(ids), train=True,
+                         dropout_u=torch.from_numpy(np.array(u))).numpy(),
+        np.asarray(jdisc.gru_logits(jp, jcfg, jnp.asarray(ids), train=True,
+                                    rng=key)), rtol=1e-5, atol=1e-6)
+
+
+def test_gru_params_convert_both_ways(tmp_path):
+    """The GRU's parameters through the numpy archive of a JAX checkpoint
+    (``dis_params/layers/i/w_ih`` ...) into the port's names and back into
+    the JAX tree, bit for bit."""
+    from test_torch_params import write_archive
+    from transformer_gan_tpu.train import checkpoint as jck
+    jcfg = jdisc.GruConfig(embedding_dim=12, hidden_dim=10, feature_dim=8)
+    jp = jdisc.init_gru_params(jcfg, seed=4)
+    jck.save_checkpoint(str(tmp_path), "checkpoint_last", {"dis_params": jp})
+    arrays = convert.read_archive(write_archive(str(tmp_path
+                                                    / "checkpoint_last")))
+    got = convert.tensors_from_archive(arrays, "dis_params")
+    assert set(got) == set(tdisc.init_gru_params(tdisc.GruConfig(), 0))
+    for k, v in flat_tree(jp).items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    back = convert.params_to_jax(got)
+    assert len(back["layers"]) == 4
+    for k, v in flat_tree(back).items():
+        np.testing.assert_array_equal(v, flat_tree(jp)[k], err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +521,45 @@ def test_cli_gan_trains_and_restarts(tmp_path):
     assert resumed.train_step_num == 6
     assert resumed.gan.dis_opt_state.count == 6 + 4
     assert resumed.gan.gen_opt_state.count == 1 + 1
+
+
+@pytest.mark.parametrize("tpu", [{"cache_kv": False},
+                                 {"gan_decode_cache": "rolling"}])
+def test_cli_gan_on_the_rolling_sampler(tmp_path, monkeypatch, tpu):
+    """The training CLI on the cnn config under raw-hidden memory and under
+    the rolling decode cache: every dis and gen phase samples on the rolling
+    ``gen_scan``, and the fused sampler is never called."""
+    from transformer_gan_torch.cli import train as tcli
+    calls = {"gen_scan": 0}
+    gen_scan = tgan.gen_scan
+
+    def counted(*a, **k):
+        calls["gen_scan"] += 1
+        return gen_scan(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("the fused sampler ran on the rolling path")
+
+    monkeypatch.setattr(tgan, "gen_scan", counted)
+    monkeypatch.setattr(tgan, "_sample_fake_chunks_fused", refuse)
+    data = str(tmp_path / "data")
+    write_random_corpus(data, PACKAGED_VOCAB, n_train=12, train_len=60,
+                        n_eval=3, eval_len=40, seed=0)
+    path = _cnn_cfg_file(tmp_path, max_step=3)
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["TPU"].update(tpu)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    tr = tcli.main(["--data_dir", data, "--cfg", path, "--work_dir",
+                    str(tmp_path / "w"), "--device", "cpu"])
+    assert tr.train_step_num == 3
+    assert tr.gan.dis_opt_state.count == 4 and tr.gan.gen_opt_state.count == 1
+    assert tr.state.mems[0].hids.dim() == (6 if tpu.get("cache_kv", True)
+                                           else 4)
+    # one gen_scan per micro-batch (DISCRIMINATOR.batch_chunk 1,
+    # sample_chunks_mem 1): dis 2 phases x 2 updates, gen 1
+    assert calls["gen_scan"] == 4 + 1
 
 
 def test_gan_checkpoint_converts_both_ways(tmp_path):

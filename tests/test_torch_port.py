@@ -49,6 +49,7 @@ assert {"transformer_gan_torch.bert.mlm", "transformer_gan_torch.bert.tokenizer"
         "transformer_gan_torch.cli.encode",
         "transformer_gan_torch.cli.batch_generate",
         "transformer_gan_torch.tools.make_synth_corpus",
+        "transformer_gan_torch.tools.gen_npy_samples",
         "transformer_gan_torch.parallel.mesh",
         "transformer_gan_torch.parallel.sharding",
         "transformer_gan_torch.dryrun"} <= set(names), names

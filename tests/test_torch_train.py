@@ -14,6 +14,7 @@ normalises each gradient element, so a gradient near zero turns rounding
 into a step of up to lr; the bound holds a few lr * 1e-3)."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -299,3 +300,79 @@ def test_train_step_without_mle_keeps_params():
     assert torch.equal(state.flat.detach(), before)
     assert float(met["grad_norm"]) > 0 and state.step == 1
     assert dataclasses.is_dataclass(state)
+
+
+# ---------------------------------------------------------------------------
+# Remat and the profiler trace
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("route,cache_kv", [("plain", True), ("v2", True),
+                                            (None, False)])
+def test_remat_gradients_equal_without_remat_dropout_on(route, cache_kv):
+    """``remat`` (each layer recomputed in the backward) at dropout and
+    attention dropout 0.1: the same loss and gradients as without it, over
+    two windows into a ring with a reset row. The recompute must replay the
+    generator's masks (and on the v2 route the kernel's hashed attention
+    dropout). Loss exact; gradients rtol 1e-6 / atol 1e-9 (the same ops on
+    the same values; only the backward's schedule differs)."""
+    _, tcfg, jp = _models(dropout=0.1, dropatt=0.1)
+    tcfg = dataclasses.replace(tcfg, cache_kv=cache_kv)
+    rng = np.random.RandomState(4)
+    out = {}
+    for remat in (False, True):
+        tp = {k: v.requires_grad_() for k, v in
+              convert.params_from_jax(jp).items()}
+        mems, losses = txl.init_mems(tcfg, 24, 2), []
+        rng = np.random.RandomState(4)
+        for step in range(2):
+            data, target = (torch.from_numpy(rng.randint(0, 310, (16, 2)))
+                            for _ in "dt")
+            nll, mems = txl.forward_nll(
+                tp, tcfg, data, target, torch.tensor([False, step == 1]),
+                mems, generator=torch.Generator().manual_seed(step),
+                route=route, remat=remat)
+            nll.mean().backward()
+            losses.append(nll.detach())
+        out[remat] = (losses, {k: v.grad for k, v in tp.items()})
+    for a, b in zip(out[False][0], out[True][0]):
+        assert torch.equal(a, b)
+    for k, g in out[False][1].items():
+        torch.testing.assert_close(out[True][1][k], g, rtol=1e-6, atol=1e-9,
+                                   msg=k)
+    # the masks were drawn: the same step without a generator differs
+    tp = convert.params_from_jax(jp)
+    plain, _ = txl.forward_nll(tp, tcfg, data, target, None,
+                               txl.init_mems(tcfg, 24, 2), route=route)
+    assert not torch.equal(plain, out[True][0][0])
+
+
+def test_profile_dir_writes_a_trace_on_the_cpu(tmp_path):
+    """``TPU.profile_dir``: a 16-step CPU run writes a torch.profiler trace
+    of steps 10 to 15 (CPU activities) into the directory."""
+    import json
+
+    import yaml
+
+    from chip_smoke import write_random_corpus
+    from transformer_gan_torch.cli import train as tcli
+    from transformer_gan_torch.config import PACKAGED_VOCAB
+    data = tmp_path / "data"
+    write_random_corpus(str(data), PACKAGED_VOCAB, n_train=8, train_len=40,
+                        n_eval=2, eval_len=20, seed=1)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "training_config",
+                           "experiment_baseline.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["MODEL"].update(num_layers=1, num_heads=2, units=16, inner_size=32)
+    cfg["TRAIN"].update(batch_size=2, max_step=16, log_interval=8,
+                        eval_interval=100, mem_length=8, tgt_length=8)
+    cfg["TPU"].update(profile_dir=str(tmp_path / "prof"), remat=True)
+    (tmp_path / "cfg.yml").write_text(yaml.safe_dump(cfg))
+    trainer = tcli.main(["--data_dir", str(data), "--cfg",
+                         str(tmp_path / "cfg.yml"), "--work_dir",
+                         str(tmp_path / "w"), "--device", "cpu"])
+    assert trainer.train_step_num == 16
+    path = tmp_path / "prof" / "trace_rank0.json"
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)

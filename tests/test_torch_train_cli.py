@@ -128,8 +128,8 @@ def test_warm_start_and_unported_features(tmp_path, corpus):
                                               "checkpoint_last.pt"))
     live = tr.state.params()
     assert all(torch.equal(live[k].detach(), loaded[k]) for k in loaded)
-    # PPO and the quality metrics are ported; remat and bf16 master
-    # parameters are not
+    # PPO, the quality metrics and remat are ported; bf16 master parameters
+    # are refused, as in the JAX package
     for over in ({"DISCRIMINATOR": {"type": "bert", "start_iter": 0,
                                     "BERT": {"loss_type": "ppo",
                                              "random_weights": True,
@@ -141,10 +141,13 @@ def test_warm_start_and_unported_features(tmp_path, corpus):
                               "CLASSIFIER": {"use_classifier": True}}}):
         c = training_config(warm).merge(over)
         Trainer(c, corpus, str(tmp_path / "c"), device="cpu")
-    for over in ({"TPU": {"remat": True}}, {"TPU": {"param_dtype": "bfloat16"}}):
-        c = training_config(warm).merge(over)
-        with pytest.raises(NotImplementedError):
-            Trainer(c, corpus, str(tmp_path / "c"), device="cpu")
+    c = training_config(warm).merge({"TPU": {"remat": True}})
+    remat = Trainer(c, corpus, str(tmp_path / "c"), device="cpu")
+    remat.train()
+    assert remat.train_step_num == 1
+    c = training_config(warm).merge({"TPU": {"param_dtype": "bfloat16"}})
+    with pytest.raises(NotImplementedError):
+        Trainer(c, corpus, str(tmp_path / "c"), device="cpu")
 
 
 def test_jax_training_checkpoint_converts(tmp_path):

@@ -118,5 +118,18 @@ def test_merge_refuses_chunk_longer_than_ring():
 
 
 def test_raw_hidden_memory_not_ported():
-    with pytest.raises(NotImplementedError):
-        txl.init_mems(txl.XLConfig(cache_kv=False, n_layer=1), 4, 1)
+    """The raw-hidden memory runs (its JAX parity is in
+    tests/test_torch_raw_memory.py): [n_layer + 1, M, b, d] hiddens, a
+    forward that fills them, and no fused route or chunked decode on it."""
+    cfg = txl.XLConfig(cache_kv=False, n_layer=1, n_head=2, d_model=8,
+                       d_inner=16)
+    params = txl.init_xl_params(cfg, seed=0)
+    mems = txl.init_mems(cfg, 4, 1)
+    assert mems.hids.shape == (2, 4, 1, 8)
+    data = torch.tensor([[5], [6], [7]])
+    _, new = txl.xl_forward(params, cfg, data, mems)
+    assert new.count == 3 and float(new.hids[:, -3:].abs().min()) > 0
+    with pytest.raises(ValueError):
+        txl.xl_forward(params, cfg, data, mems, route="v2")
+    with pytest.raises(ValueError):
+        txl.decode_state_from_mems(params, cfg, mems)

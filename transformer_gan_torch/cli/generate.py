@@ -26,6 +26,7 @@ from .._native import resolve_device
 from ..config import (PACKAGED_VOCAB, inference_config, is_null,
                       training_config)
 from ..convert import PARAMS_SUFFIX, load_params
+from ..data.vocab import BaseVocab
 from ..infer import sample as sampling
 from ..models import xl
 
@@ -81,14 +82,15 @@ def main(inference_cfg, device=None, generator: torch.Generator | None = None):
     ext = ".txt"
 
     tokens_list, token2index = load_vocab(inference_cfg.EVENT.vocab_file_path)
-    if tokens_list[:2] != ["<S>", "<PAD>"]:
-        raise ValueError("the vocab must start with <S> and <PAD>")
     empty_bar_token = token2index["TIME_SHIFT_100"]
 
     cfg = training_config(cfg_fp)
+    vocab = BaseVocab(tokens_list)
     if cfg.TRAIN.append_note_status:
-        raise NotImplementedError("note-status inputs are not ported yet")
-    xcfg = xl.XLConfig.from_cfg(cfg, len(tokens_list))
+        # the model carries status_emb; sampling feeds no status vectors,
+        # as the JAX package's CLI
+        vocab.notes_mapping()
+    xcfg = xl.XLConfig.from_cfg(cfg, len(tokens_list), vocab.vec_len)
     params = load_params(params_fp, device)
 
     mem_len = int(inference_cfg.MODEL.memory_length)

@@ -5,8 +5,8 @@ JAX package.
 schemas. The port's defaults cover the keys it reads (the model's shape,
 the MLE trainer's TRAIN / EVALUATE / INITIALIZER / DATASET keys, the GAN
 phases' DISCRIMINATOR / PPO keys and ``TPU.gan_*`` switches, the quality
-metrics' METRICS keys, the keys that must stay off because their features
-are not ported, and the precision keys under ``TPU``), each with the JAX package's default; a file may set
+metrics' METRICS keys, and the memory layout, remat, profiling and precision
+keys under ``TPU``), each with the JAX package's default; a file may set
 any other key, which is kept as it is. Values keep attribute access
 (``cfg.MODEL.num_layers``).
 
@@ -106,21 +106,12 @@ def is_null(value) -> bool:
 
 
 def check_gan_config(cfg) -> None:
-    """Raise ``NotImplementedError`` for a GAN setting the port does not
-    run: a discriminator other than cnn and bert, the rolling decode cache
-    and the raw-hidden memory (``TPU.cache_kv`` off)."""
+    """Raise ``NotImplementedError`` for a discriminator the GAN routes do
+    not run (cnn and bert; the JAX package's routes take no other)."""
     d = cfg.DISCRIMINATOR
-    if is_null(d.type):
-        return
-    if d.type not in ("cnn", "bert"):
+    if not is_null(d.type) and d.type not in ("cnn", "bert"):
         raise NotImplementedError(
             f"DISCRIMINATOR.type {d.type!r} is not ported (cnn and bert are)")
-    if str(cfg.TPU.gan_decode_cache) == "rolling":
-        raise NotImplementedError(
-            "TPU.gan_decode_cache: rolling is not ported (the port samples "
-            "on the chunked decode cache)")
-    if not cfg.TPU.cache_kv:
-        raise NotImplementedError("GAN training needs TPU.cache_kv: true")
 
 
 class Config(dict):

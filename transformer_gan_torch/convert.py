@@ -29,7 +29,10 @@ and the multiplier at index 3, the BERT critic's (the same chain inside the
 freeze's (zero, chain, zero)) at 1/1/0 and 1/3, PPO's ``dis_D`` (clip,
 Adam, scale, scale: no multiplier) its Adam state at 1 and no multiplier.
 :func:`archive_from_checkpoint` writes the port's checkpoint back under the
-same names. A BERT (MLM) checkpoint is its
+same names. Every leaf crosses under its tree path, so a note-status
+model's ``status_emb`` and the GRU discriminator's ``layers/i/w_ih`` ...
+(``layers.i.w_ih`` in the port) need nothing of their own. A BERT (MLM)
+checkpoint is its
 ``params`` tree and ``metadata.json`` (:func:`import_bert_archive`,
 :func:`archive_from_bert_checkpoint`); the JAX ``layers`` list becomes
 ``layers.i.name``.

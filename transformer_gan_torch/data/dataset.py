@@ -13,8 +13,9 @@ module of the JAX package) with the same emission contracts:
   piece long enough for a ``bptt`` crop and emits a fresh random crop of it
   every batch.
 
-Not ported yet: note-status vectors (``TRAIN.append_note_status`` raises;
-``status_vec`` is always None).
+With ``TRAIN.append_note_status`` the train and eval iterators also emit
+``status_vec`` [bptt, bsz, vec_len] bool, the held notes after each token
+(cleared on a reset row, or at an eval group's first window); else None.
 """
 
 from __future__ import annotations
@@ -164,10 +165,6 @@ class MusicDataset:
         self._test_folder = os.path.join(data_dir, "test")
         self._vocab = BaseVocab.from_file(self._vocab_path)
         self.cfg = cfg
-        if cfg.TRAIN.append_note_status:
-            raise NotImplementedError(
-                "note-status inputs (TRAIN.append_note_status) are not "
-                "ported yet")
 
         self._train_data = self.load_cache_data(self._train_folder)
         self._valid_data = self.load_cache_data(self._valid_folder)
@@ -199,6 +196,8 @@ class MusicDataset:
             print("             #Total Number of Valid/Test Tokens: {}/{}"
                   .format((self._valid_seq_length - 1).sum(),
                           (self._test_seq_length - 1).sum()))
+        if cfg.TRAIN.append_note_status:
+            self._vocab.notes_mapping()
 
     @staticmethod
     def load_cache_data(dir_name):
@@ -247,6 +246,11 @@ class MusicDataset:
         elif split == "test":
             return self.test_data, self.test_seq_length
         raise NotImplementedError(split)
+
+    def _status_buffer(self, bptt, batch_size):
+        if not self.cfg.TRAIN.append_note_status:
+            return None
+        return np.zeros((bptt, batch_size, self._vocab.vec_len), dtype=bool)
 
     # ------------------------------------------------------------------ train
     def get_iterator(self, batch_size, bptt, device=None, split="train",
@@ -311,6 +315,7 @@ class MusicDataset:
             data = np.empty((bptt, batch_size), dtype=np.int64)
             target = np.empty((bptt, batch_size), dtype=np.int64)
             reset_mem = np.empty((batch_size,), dtype=bool)
+            status_vec = self._status_buffer(bptt, batch_size)
             win_tokens = 0
             win_batches = 0
 
@@ -337,8 +342,13 @@ class MusicDataset:
                     report_utilization(win_tokens, win_batches)
                     win_tokens = win_batches = 0
 
+                if status_vec is not None:
+                    status_vec[:, reset_mem, :] = False
+                    self._vocab.update_status_vec(data, status_vec)
+
                 yield (data.copy(), target.copy(), reset_mem.copy(),
-                       batch_token_num, None)
+                       batch_token_num,
+                       status_vec.copy() if status_vec is not None else None)
 
         return iterator
 
@@ -395,6 +405,7 @@ class MusicDataset:
         def iterator():
             data = np.empty((bptt, batch_size), dtype=np.int64)
             target = np.empty((bptt, batch_size), dtype=np.int64)
+            status_vec = self._status_buffer(bptt, batch_size)
             for group_lo in range(0, len(pieces), batch_size):
                 group = range(group_lo, min(group_lo + batch_size,
                                             len(pieces)))
@@ -412,8 +423,15 @@ class MusicDataset:
                         target[:n, j] = pieces[i][win_lo + 1:win_lo + 1 + n]
                         batch_token_num += n
 
+                    if status_vec is not None:
+                        if first_window:
+                            status_vec[:] = False
+                        self._vocab.update_status_vec(data, status_vec)
+
                     yield (data.copy(), target.copy(), first_window,
-                           batch_token_num, None)
+                           batch_token_num,
+                           status_vec.copy() if status_vec is not None
+                           else None)
                     first_window = False
 
         return iterator

@@ -3,8 +3,12 @@
 Counterpart of ``transformer_gan_tpu/infer/sample.py``: prefix priming in
 windows of batch forwards, single-step decoding for the duration-based host
 loop, fixed-length generation in chunks (the fused sampling kernel for
-top-k / random, the plain chunked decode for nucleus), and the quality
-metrics' gumbel-argmax generation (:func:`generate_tokens_gumbel`).
+top-k / random, the plain chunked decode for nucleus and for models with
+note-status inputs, which the kernel does not take), and the quality
+metrics' gumbel-argmax generation (:func:`generate_tokens_gumbel`). Under
+raw-hidden memory (``cache_kv`` off) both run the rolling loop of one-token
+forwards over the memory ring, as the JAX package does: that layout has no
+chunked decode and no kernel.
 
 Random numbers: every sampling function takes the gumbel noise ``g`` as an
 input. :func:`gumbel_noise` draws it from an explicit ``torch.Generator``;
@@ -142,7 +146,7 @@ def make_prime_step(xcfg: xl.XLConfig, window: int = PRIME_WINDOW):
 
     @torch.no_grad()
     def prime_chunked(params, context, mems):
-        w = max(1, min(window, mems.hids.shape[4]))
+        w = max(1, min(window, mems.mem_len))
         logits = None
         for s in range(0, context.shape[0], w):
             logits, mems = xl.forward_generate(params, xcfg, context[s:s + w],
@@ -160,11 +164,13 @@ def sample_scan(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
 
     g_all: [length, bsz, V] fp32 gumbel noise. Returns (tokens [length,
     bsz], final mems). Top-k, random and gumbel run on the fused sampling
-    kernel (its plain version on the CPU); nucleus on the plain chunked
-    decode."""
+    kernel (its plain version on the CPU); nucleus and note-status models on
+    the plain chunked decode; raw-hidden memory on the rolling loop."""
+    if not xcfg.cache_kv:
+        return _rolling_sample_loop(params, xcfg, scfg, first_token, mems,
+                                    length, g_all, same_length=True)
     bsz = first_token.shape[0]
-    M = mems.hids.shape[4]
-    C = min(DECODE_CHUNK, length, M)
+    C = min(DECODE_CHUNK, length, mems.mem_len)
     empty0 = torch.zeros_like(first_token)
     if gen_ops.supports_fused_generate(xcfg, scfg, bsz, C):
         tokens, hids, count = _fused_sample_loop(
@@ -177,6 +183,26 @@ def sample_scan(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
     return tokens, xl.mems_from_decode_state(xcfg, state)
 
 
+def _rolling_sample_loop(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
+                         first_token, mems: xl.XLMems, length: int, g_all, *,
+                         same_length: bool):
+    """``length`` one-token forwards over the memory ring (the layout's
+    own), each memory shifted by one slot. Returns (tokens [length, bsz],
+    final mems)."""
+    pos_emb = xl.positional_embedding(xcfg, mems.mem_len + 1,
+                                      first_token.device).to(xcfg.cdtype)
+    token, empty_run = first_token, torch.zeros_like(first_token)
+    pieces = []
+    for t in range(length):
+        logits, mems = xl.forward_generate(params, xcfg, token[None], mems,
+                                           same_length=same_length,
+                                           pos_emb=pos_emb)
+        token = _filter_and_sample(logits[-1], scfg, empty_run, g_all[t])
+        empty_run = _next_empty(token, empty_run, scfg)
+        pieces.append(token)
+    return torch.stack(pieces), mems
+
+
 def _chunked_sample_loop(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
                          first_token, mems: xl.XLMems, length: int, g_all, *,
                          same_length: bool):
@@ -184,7 +210,7 @@ def _chunked_sample_loop(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
     each, the staged rows merged once a chunk. Returns (tokens [length,
     bsz], decode state)."""
     bsz = first_token.shape[0]
-    C = min(DECODE_CHUNK, length, mems.hids.shape[4])
+    C = min(DECODE_CHUNK, length, mems.mem_len)
     state = xl.decode_state_from_mems(params, xcfg, mems)
     token, empty_run = first_token, torch.zeros_like(first_token)
     pieces = []
@@ -227,12 +253,13 @@ def generate_tokens_gumbel(params, xcfg: xl.XLConfig, seq_len: int,
     generate_tokens): ``seq_len - 1`` tokens after ``first_token`` [bsz],
     each the argmax of its logits plus ``g_all`` [seq_len - 1, bsz, V]
     (:func:`gumbel_draws`; a positive temperature does not move the
-    argmax), on the chunked memory ``mems`` with same_length off, on K3's
-    gumbel technique (its plain version for CPU tensors). A wave wider than
-    ``ops.generate.MAX_LANES`` runs as sub-waves of at most that many
-    lanes; on the CPU a model K3 does not take (note-status inputs) runs
-    the plain chunked decode, on the card it raises ValueError. Returns
-    the tokens [seq_len, bsz], ``first_token`` first."""
+    argmax), with same_length off: on the chunked memory ``mems`` on K3's
+    gumbel technique (its plain version for CPU tensors), or the plain
+    chunked decode for a model K3 does not take (note-status inputs, as the
+    JAX package gates its kernel); on raw-hidden memory the rolling loop. A
+    wave wider than ``ops.generate.MAX_LANES`` runs as sub-waves of at most
+    that many lanes. Returns the tokens [seq_len, bsz], ``first_token``
+    first."""
     length = seq_len - 1
     if length <= 0:
         return first_token[None]
@@ -241,21 +268,21 @@ def generate_tokens_gumbel(params, xcfg: xl.XLConfig, seq_len: int,
     if bsz > W:
         return torch.cat([generate_tokens_gumbel(
             params, xcfg, seq_len, first_token[s:s + W],
-            xl.XLMems(hids=mems.hids[:, :, :, s:s + W], count=mems.count),
-            g_all[:, s:s + W]) for s in range(0, bsz, W)], dim=1)
-    C = min(DECODE_CHUNK, length, mems.hids.shape[4])
-    if gen_ops.supports_fused_generate(xcfg, GUMBEL_ARGMAX, bsz, C):
+            mems.rows(s, min(s + W, bsz)), g_all[:, s:s + W])
+            for s in range(0, bsz, W)], dim=1)
+    if not xcfg.cache_kv:
+        tokens, _ = _rolling_sample_loop(params, xcfg, GUMBEL_ARGMAX,
+                                         first_token, mems, length, g_all,
+                                         same_length=False)
+    elif gen_ops.supports_fused_generate(
+            xcfg, GUMBEL_ARGMAX, bsz, min(DECODE_CHUNK, length, mems.mem_len)):
         tokens, _, _ = _fused_sample_loop(
             params, xcfg, GUMBEL_ARGMAX, first_token, mems, length, g_all,
             torch.zeros_like(first_token), same_length=False)
-    elif mems.hids.device.type == "cpu":
+    else:
         tokens, _ = _chunked_sample_loop(params, xcfg, GUMBEL_ARGMAX,
                                          first_token, mems, length, g_all,
                                          same_length=False)
-    else:
-        raise ValueError(
-            "K3 does not take this model (note-status inputs): "
-            "generate_tokens_gumbel runs it on the CPU only")
     return torch.cat([first_token[None].to(tokens.dtype), tokens])
 
 

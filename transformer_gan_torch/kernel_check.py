@@ -25,6 +25,8 @@ from .ops.decode_params import stack_decode_params
 BASELINE = dict(n_token=310, n_layer=6, n_head=10, d_model=500, d_inner=1000,
                 dropout=0.0, dropatt=0.0, cache_kv=True)
 MEM_LEN = 4146
+# note-status slots of the performance vocab (its NOTE_ON tokens)
+STATUS_SLOTS = 88
 
 # Tolerances: fp32 kernels sum in another order than cuBLAS (1e-4 for the
 # attention outputs, 1e-3 for staged K/V after six layers); bf16 attention
@@ -230,13 +232,16 @@ class TrainCase:
     ``fn`` is the step on the default route, ``fn_plain`` the step with
     every layer's attention on the plain ``rel_attention_kv``;
     ``steps(n, plain)`` runs n steps of one of them and returns host seconds
-    per step (ending in a device sync). Data parallel (the process's mesh),
-    ``B`` is the global batch and the state and batch hold the rank's
-    rows."""
+    per step (ending in a device sync). ``status``: note-status inputs
+    (seeded held-note vectors, 88 slots); ``cache_kv`` False: the raw-hidden
+    memory (plain attention on either step); ``remat``: each layer
+    recomputed in the backward. Data parallel (the process's mesh), ``B`` is
+    the global batch and the state and batch hold the rank's rows."""
 
     def __init__(self, B: int = 128, tgt: int = 128, M: int = 1024,
                  dtype: str = "bfloat16", dropout: float = 0.1,
-                 device="cuda:0", seed: int = 2):
+                 device="cuda:0", seed: int = 2, status: bool = False,
+                 cache_kv: bool = True, remat: bool = False):
         import dataclasses
 
         from .parallel import mesh as pmesh
@@ -244,8 +249,10 @@ class TrainCase:
         from .train import optim as topt
         from .train import step as tstep
         world = pmesh.current().world
-        cfg = dataclasses.replace(baseline_config(dtype), dropout=dropout,
-                                  dropatt=dropout)
+        cfg = dataclasses.replace(
+            baseline_config(dtype), dropout=dropout, dropatt=dropout,
+            cache_kv=cache_kv, append_note_status=status,
+            vec_len=STATUS_SLOTS if status else 0)
         params = xl.init_xl_params(cfg, seed=seed, base_init=("normal", 0.02))
         opt = topt.FusedOptimizer(
             "adam", 0.004, topt.make_schedule("inv_sqrt", 0.004, 100000,
@@ -254,12 +261,16 @@ class TrainCase:
         self.state = tstep.init_train_state(params, opt, cfg, 1, M,
                                             B // world, 1111, device)
         self.cfg = cfg
-        self.fn = tstep.make_mle_train_step(cfg, opt, 1, pad_id=1)
+        self.fn = tstep.make_mle_train_step(cfg, opt, 1, pad_id=1,
+                                            remat=remat)
         self.fn_plain = tstep.make_mle_train_step(cfg, opt, 1, pad_id=1,
-                                                  route="plain")
+                                                  route="plain", remat=remat)
         gen = torch.Generator().manual_seed(seed)  # the same ids on any device
         self.data = psh.batch_rows(torch.randint(
             2, cfg.n_token, (1, tgt, B), generator=gen), axis=2).to(device)
+        self.status = (psh.batch_rows(torch.rand(
+            (1, tgt, B, STATUS_SLOTS), generator=gen) < 0.1, axis=2).to(device)
+            if status else None)
         self.reset = torch.zeros((1, B // world), dtype=torch.bool,
                                  device=device)
         self.tokens = B * tgt // world
@@ -270,18 +281,21 @@ class TrainCase:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            self.state, met = fn(self.state, self.data, self.data, self.reset)
+            self.state, met = fn(self.state, self.data, self.data, self.reset,
+                                 self.status)
         float(met["loss_weighted"])  # waits for the device
         return (time.perf_counter() - t0) / n
 
-    def flat_grad(self, data, target, reset) -> torch.Tensor:
+    def flat_grad(self, data, target, reset, status=None) -> torch.Tensor:
         """The flat fp32 gradient the next ``fn`` step takes, without
         stepping: the mean NLL of one chunk over the current memory, for
         targets without padding and without dropout."""
         flat = self.state.flat.detach().clone().requires_grad_(True)
         nll, _ = xl.forward_nll(self.state.layout.unflatten(flat), self.cfg,
                                 data[0], target[0], reset[0],
-                                self.state.mems[0])
+                                self.state.mems[0],
+                                status_vec=None if status is None
+                                else status[0])
         nll.mean().backward()
         return flat.grad
 
@@ -789,7 +803,8 @@ class GanCase:
 # above the largest spread an H100 read in the cnn, spanbert and PPO
 # updates (1.06e-6 to 1.23e-6) and 500x above the units it replayed (at
 # most 1.5e-7). The control of the rule plants a fault on the card: the
-# window pass's K/V memory rounded to bf16 (``plant``), read against the
+# window pass's K/V memory (on the rolling sampler, each step's memory)
+# rounded to bf16 (``plant``), read against the
 # CPU's record by the same rule (the H100 read a spread of 4.1e-4, 51 to
 # 182 differing units, gen leaves 1.1e-2 to 6.5e-2 off).
 GAN_REF_TOL = {"loss_rel": 1e-5, "grad_rel": 1e-5, "grad_leaf_rel": 5e-5,
@@ -804,30 +819,42 @@ def _row_rel(x: torch.Tensor) -> torch.Tensor:
 
 
 class _FFPre:
-    """Records the FF pre-activations (the inputs of the window pass's L
-    ReLUs, [L, n, b, d_inner] fp32 on the CPU) of every window pass that the
-    gen update differentiates in its parameters (``xl
-    .decode_recompute_window`` under grad with live parameters: not the
-    plain chain's detached single-token passes), in call order, without
-    changing the pass. ``replay``: another run's record; a ReLU whose own
-    pre-activation lies within ``band`` of zero (:func:`_row_rel`) takes the
-    recorded decision, every other its own. ``plant``: the pass reads its
-    K/V memory rounded to bf16 (the control's planted fault)."""
+    """Records the FF pre-activations (the inputs of the L ReLUs, [L, n, b,
+    d_inner] fp32 on the CPU) of every pass that the gen update
+    differentiates in its parameters, in call order, without changing the
+    pass: the window passes (``xl.decode_recompute_window`` under grad with
+    live parameters: not the plain chain's detached single-token passes)
+    and the rolling sampler's one-token forwards (``xl.forward_generate``,
+    n 1). ``replay``: another run's record; a ReLU whose own pre-activation
+    lies within ``band`` of zero (:func:`_row_rel`) takes the recorded
+    decision, every other its own. ``plant``: the pass reads its memory
+    (the window's K/V, the rolling memory) rounded to bf16 (the control's
+    planted fault). ``passes``: the wrapped functions of ``xl`` (the MLE
+    step's: ``xl_forward``)."""
 
-    def __init__(self, replay=None, band: float = 0.0, plant: bool = False):
+    # the wrapped functions and the positions of their memory arguments
+    PASSES = {"decode_recompute_window": (3, 4), "forward_generate": (3,),
+              "xl_forward": (3,)}
+
+    def __init__(self, replay=None, band: float = 0.0, plant: bool = False,
+                 passes=("decode_recompute_window", "forward_generate")):
         self.replay, self.band, self.plant = replay, band, plant
+        self.passes = passes
 
-    def __enter__(self):
-        self.pre, orig = [], xl.decode_recompute_window
-        self._orig = orig
-
-        def window(params, cfg, inp, k_mem, v_mem, *args, **kw):
+    def _wrap(self, orig, mem_args):
+        def run(params, cfg, *args, **kw):
             if not (torch.is_grad_enabled()
                     and any(v.requires_grad for v in params.values())):
-                return orig(params, cfg, inp, k_mem, v_mem, *args, **kw)
+                return orig(params, cfg, *args, **kw)
             if self.plant:
-                k_mem, v_mem = (t.bfloat16().to(t.dtype) for t in (k_mem,
-                                                                    v_mem))
+                args = list(args)
+                for i in mem_args:
+                    m = args[i - 2]
+                    if isinstance(m, xl.XLMems):
+                        args[i - 2] = m._replace(
+                            hids=m.hids.bfloat16().to(m.hids.dtype))
+                    else:
+                        args[i - 2] = m.bfloat16().to(m.dtype)
             card = None if self.replay is None else self.replay[len(self.pre)]
             pre, relu = [], torch.relu
 
@@ -847,7 +874,7 @@ class _FFPre:
 
             torch.relu = decided
             try:
-                out = orig(params, cfg, inp, k_mem, v_mem, *args, **kw)
+                out = orig(params, cfg, *args, **kw)
             finally:
                 torch.relu = relu
             if card is not None and len(pre) != card.shape[0]:
@@ -856,11 +883,18 @@ class _FFPre:
             self.pre.append(torch.stack(pre))
             return out
 
-        xl.decode_recompute_window = window
+        return run
+
+    def __enter__(self):
+        self.pre = []
+        self._orig = {name: getattr(xl, name) for name in self.passes}
+        for name in self.passes:
+            setattr(xl, name, self._wrap(self._orig[name], self.PASSES[name]))
         return self
 
     def __exit__(self, *exc):
-        xl.decode_recompute_window = self._orig
+        for name, orig in self._orig.items():
+            setattr(xl, name, orig)
 
 
 def kink_stats(card, own, band: float) -> dict:
@@ -980,7 +1014,7 @@ def check_gan_reference(B: int = 8, devices=("cuda:0", "cpu"),
     plant_gen = _grad_errs(planted["grads"]["gen"], p["grads"]["gen"],
                            p["layouts"]["gen"], tol["leaf_floor"])
     res["control_planted"] = {
-        "fault": "window pass K/V memory rounded to bf16",
+        "fault": "window pass K/V (rolling sampler: memory) rounded to bf16",
         "kink_outside": plant_kinks["kink_outside"],
         "kink_units": len(plant_kinks["kink_units"]),
         "ff_pre_spread": plant_kinks["ff_pre_spread"],

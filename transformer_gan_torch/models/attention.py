@@ -1,10 +1,13 @@
 """Relative-position multi-head attention (Transformer-XL), plain PyTorch.
 
-Counterpart of ``transformer_gan_tpu/models/attention.py``: ``layer_norm``
-and the K/V-cached ``rel_attention_kv`` (AC/BD score decomposition with the
-pad-reshape relative shift, masked softmax, attention dropout drawn from an
-explicit ``torch.Generator``). It is the plain version of the fused
-attention kernels in ``ops/attention.py`` and the CPU training path.
+Counterpart of ``transformer_gan_tpu/models/attention.py``: ``layer_norm``,
+the raw-hidden ``rel_attention`` (QKV projected from [memory; segment]
+every call, the reference's memory semantics) and the K/V-cached
+``rel_attention_kv`` (AC/BD score decomposition with the pad-reshape
+relative shift, masked softmax, attention dropout drawn from an explicit
+``torch.Generator``). ``rel_attention_kv`` is the plain version of the
+fused attention kernels in ``ops/attention.py`` and the CPU training path;
+``rel_attention`` has no kernel, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -50,6 +53,51 @@ def build_attn_mask(qlen: int, mem_len: int, count: int, same_length: bool,
         mask = mask | (reset.to(device=device, dtype=torch.bool)[:, None, None]
                        & (j < mem_len)[None])
     return mask
+
+
+def _dropatt(prob: torch.Tensor, dropatt: float, generator) -> torch.Tensor:
+    """Keep where a uniform draw is below 1 - dropatt, scaled by
+    1 / (1 - dropatt) (the JAX package's bernoulli keep)."""
+    if generator is None or dropatt <= 0.0:
+        return prob
+    keep = torch.rand(prob.shape, generator=generator,
+                      device=prob.device) < 1.0 - dropatt
+    return torch.where(keep, prob / (1.0 - dropatt), 0.0)
+
+
+def rel_attention(w, cat, r, qkv_w, r_w, r_w_bias, r_r_bias, attn_mask,
+                  n_head: int, d_head: int, *, softmax_dtype=torch.float32,
+                  dropatt: float = 0.0,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """XL attention over raw hidden memory (the reference's own semantics).
+
+    w: [qlen, bsz, d_model] the current segment (pre-LN applied by the
+    caller; only its length is read); cat: [klen, bsz, d_model] the memory
+    hiddens followed by the segment, from which Q (its tail), K and V are
+    projected; r: [klen, d_model] positional embeddings (distance klen-1 ..
+    0); attn_mask: [rows, qlen, klen] bool, True = masked. Dropout as
+    :func:`rel_attention_kv`. Returns attn_vec [qlen, bsz, n_head*d_head]
+    (before the output projection)."""
+    qlen, bsz = w.shape[0], w.shape[1]
+    klen = cat.shape[0]
+    scale = 1.0 / (d_head ** 0.5)
+    q, k, v = (cat @ qkv_w).chunk(3, dim=-1)
+    # attention-ready [b, h, t, d]
+    q = q[-qlen:].reshape(qlen, bsz, n_head, d_head).permute(1, 2, 0, 3)
+    k = k.reshape(klen, bsz, n_head, d_head).permute(1, 2, 0, 3)
+    v = v.reshape(klen, bsz, n_head, d_head).permute(1, 2, 0, 3)
+    r_head_k = (r @ r_w).reshape(klen, n_head, d_head)
+
+    ac = (q + r_w_bias.to(q.dtype)[None, :, None, :]) @ k.transpose(-1, -2)
+    bd = rel_shift(torch.einsum("bhid,jhd->bhij",
+                                q + r_r_bias.to(q.dtype)[None, :, None, :],
+                                r_head_k.to(q.dtype)))
+    score = (ac + bd).to(softmax_dtype) * scale
+    score = score.masked_fill(attn_mask[:, None],
+                              torch.finfo(softmax_dtype).min)
+    prob = _dropatt(torch.softmax(score, dim=3), dropatt, generator)
+    ctx = prob.to(v.dtype) @ v                             # [b, h, q, d]
+    return ctx.permute(2, 0, 1, 3).reshape(qlen, bsz, n_head * d_head)
 
 
 def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
@@ -115,12 +163,8 @@ def rel_attention_kv(w, k_mem, v_mem, r, qkv_w, r_w, r_w_bias, r_r_bias,
     score = (ac + bd).to(softmax_dtype) * scale
     score = score.masked_fill(attn_mask[:, None],
                               torch.finfo(softmax_dtype).min)
-    prob = torch.softmax(score, dim=3)
-    if generator is not None and dropatt > 0.0:
-        keep = torch.rand(prob.shape, generator=generator,
-                          device=prob.device) < 1.0 - dropatt
-        prob = torch.where(keep, prob / (1.0 - dropatt), 0.0)
-    ctx = prob.to(v.dtype) @ v_used                       # [b, h, q, d]
+    prob = _dropatt(torch.softmax(score, dim=3), dropatt, generator)
+    ctx = prob.to(v.dtype) @ v_used                      # [b, h, q, d]
     if detach_kv_cross:
         # live self lane for V: ctx_i += p[i, self] * (v_i - sg(v_i))
         diag_p = torch.where(diag, prob, prob.new_zeros(())).sum(-1).detach()

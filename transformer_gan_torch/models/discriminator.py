@@ -13,8 +13,10 @@ uniform draws as an input.
 
 The vanilla CNN classifier (``CnnConfig``, ``init_cnn_params``,
 ``cnn_features``, ``cnn_logits``; the reference's CNNDiscriminator /
-CNNClassifier over token ids) is kept, as in the JAX package, for the
-inventory: nothing in the port routes through it.
+CNNClassifier over token ids) and the GRU discriminator (``GruConfig``,
+``init_gru_params``, ``gru_logits``: two bidirectional GRU layers over the
+token embeddings, the four final states through a tanh feature layer) are
+kept, as in the JAX package, for the inventory: no GAN route reaches them.
 """
 from __future__ import annotations
 
@@ -190,3 +192,89 @@ def cnn_logits(params, cfg: CnnConfig, input_ids: torch.Tensor, *,
         keep = dropout_u.to(feat.device) < 1.0 - cfg.dropout
         feat = torch.where(keep, feat / (1.0 - cfg.dropout), 0.0)
     return feat @ params["feature2out_w"] + params["feature2out_b"]
+
+
+# ---------------------------------------------------------------------------
+# GRU discriminator over token ids
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GruConfig:
+    embedding_dim: int = 64
+    vocab_size: int = 310
+    hidden_dim: int = 64
+    feature_dim: int = 64
+    padding_idx: int = 1
+    dropout: float = 0.2
+
+
+def init_gru_params(cfg: GruConfig, seed: int = 0) -> dict[str, torch.Tensor]:
+    """The JAX package's U(-0.05, 0.05) draws in its order: the embeddings
+    (padding row zeroed), then 2 layers x 2 directions of GRU cells
+    (``layers.{2 layer + direction}``, torch ``nn.GRU``'s layout: w_ih [3h,
+    in], w_hh [3h, h], gates r, z, n), then the feature and output layers."""
+    rng = np.random.RandomState(seed)
+
+    def t(shape):
+        return torch.from_numpy(np.asarray(_init_array(rng, shape, "uniform"),
+                                           dtype=np.float32))
+
+    emb = t((cfg.vocab_size, cfg.embedding_dim))
+    emb[cfg.padding_idx] = 0.0
+    h, e = cfg.hidden_dim, cfg.embedding_dim
+    params = {"embeddings": emb}
+    for layer in range(2):
+        in_dim = e if layer == 0 else 2 * h
+        for direction in range(2):
+            p = f"layers.{2 * layer + direction}."
+            params.update({p + "w_ih": t((3 * h, in_dim)),
+                           p + "b_ih": t((3 * h,)),
+                           p + "w_hh": t((3 * h, h)),
+                           p + "b_hh": t((3 * h,))})
+    params.update({"gru2hidden_w": t((2 * 2 * h, cfg.feature_dim)),
+                   "gru2hidden_b": t((cfg.feature_dim,)),
+                   "feature2out_w": t((cfg.feature_dim, 2)),
+                   "feature2out_b": t((2,))})
+    return params
+
+
+def _gru_direction(params, prefix: str, x: torch.Tensor, reverse: bool):
+    """One GRU direction over x [seq, bsz, in] -> (outputs [seq, bsz, h],
+    final state [bsz, h])."""
+    w_ih, b_ih = params[prefix + "w_ih"], params[prefix + "b_ih"]
+    w_hh, b_hh = params[prefix + "w_hh"], params[prefix + "b_hh"]
+    gi_all = x @ w_ih.T + b_ih                 # the input gates at once
+    h = x.new_zeros((x.shape[1], w_hh.shape[1]))
+    outs = []
+    steps = range(x.shape[0] - 1, -1, -1) if reverse else range(x.shape[0])
+    for t in steps:
+        ir, iz, inn = gi_all[t].chunk(3, dim=-1)
+        hr, hz, hn = (h @ w_hh.T + b_hh).chunk(3, dim=-1)
+        r = torch.sigmoid(ir + hr)
+        z = torch.sigmoid(iz + hz)
+        n = torch.tanh(inn + r * hn)
+        h = (1 - z) * n + z * h
+        outs.append(h)
+    if reverse:
+        outs.reverse()
+    return torch.stack(outs), h
+
+
+def gru_logits(params, cfg: GruConfig, input_ids: torch.Tensor, *,
+               train: bool = False,
+               dropout_u: torch.Tensor | None = None) -> torch.Tensor:
+    """[bsz, seq] ids -> [bsz, 2] logits; with ``train`` and ``dropout_u``
+    (uniform draws of the features' shape) dropout on the features."""
+    x = params["embeddings"][input_ids].transpose(0, 1)     # [seq, bsz, e]
+    finals = []
+    for layer in range(2):
+        of, hf = _gru_direction(params, f"layers.{2 * layer}.", x, False)
+        ob, hb = _gru_direction(params, f"layers.{2 * layer + 1}.", x, True)
+        x = torch.cat([of, ob], dim=-1)
+        finals += [hf, hb]
+    feature = torch.tanh(torch.cat(finals, dim=-1) @ params["gru2hidden_w"]
+                         + params["gru2hidden_b"])
+    if train and cfg.dropout > 0 and dropout_u is not None:
+        keep = dropout_u.to(feature.device) < 1.0 - cfg.dropout
+        feature = torch.where(keep, feature / (1.0 - cfg.dropout), 0.0)
+    return feature @ params["feature2out_w"] + params["feature2out_b"]

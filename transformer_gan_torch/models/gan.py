@@ -20,7 +20,17 @@ and ``bert``, PPO included:
   or the plain loop of single-position VJPs) and all parameter gradients
   from one ``torch.autograd.grad`` over the window;
 * :func:`gen_scan_chunked`, the sequential differentiable sampler, is the
-  oracle path (``TPU.gan_fused_decode: off`` or ``TPU.gan_chain_bwd: off``).
+  oracle path (``TPU.gan_fused_decode: off`` or ``TPU.gan_chain_bwd: off``);
+* :func:`gen_scan`, the rolling sampler (one ``xl.forward_generate`` a
+  token over the memory ring), runs under ``TPU.gan_decode_cache: rolling``
+  and under raw-hidden memory (``TPU.cache_kv`` off), where there is no
+  chunked cache. Its backward keeps every step's memory, which is why the
+  chunked cache is the default.
+
+The fused sampler and the window recompute (with its reverse chain) run
+only on the chunked cache and not under note-status inputs, the JAX
+package's gates: there the sequential sampler takes every phase, plain
+torch ops on any device.
 
 The BERT critic scores soft one-hots padded with a zero ``[MASK]`` column
 times its fp32 word embeddings, real ids through the embedding rows, both in
@@ -64,8 +74,7 @@ GUMBEL_EPS = 1e-20
 @dataclasses.dataclass(frozen=True)
 class GanConfig:
     """Static GAN-phase parameters (from cfg.DISCRIMINATOR / cfg.PPO /
-    cfg.TPU). The port samples on the chunked decode cache only (``config.check_gan_config``
-    refuses ``TPU.gan_decode_cache: rolling``)."""
+    cfg.TPU)."""
 
     dis_type: str = "cnn"
     loss_type: str = "rsgan"
@@ -93,6 +102,9 @@ class GanConfig:
     # tensors); "plain": their plain versions on any device, the yardstick
     # the kernel path is timed against (not a configuration key)
     route: str = "kernel"
+    # sampling memory: "auto" / "chunked" the two-level chunked decode cache
+    # under cache_kv, else the rolling sampler; "rolling" forces the latter
+    decode_cache: str = "auto"
 
     def __post_init__(self):
         if self.dis_type not in ("cnn", "bert"):
@@ -108,6 +120,9 @@ class GanConfig:
             raise ValueError(f"unknown TPU.gan_chain_bwd {self.chain_bwd!r}")
         if self.route not in ("kernel", "plain"):
             raise ValueError(f"unknown route {self.route!r}")
+        if self.decode_cache not in ("auto", "chunked", "rolling"):
+            raise ValueError(
+                f"unknown TPU.gan_decode_cache {self.decode_cache!r}")
         if self.fused_sampler not in ("auto", "on", "off"):
             raise ValueError(
                 f"unknown TPU.gan_fused_decode {self.fused_sampler!r}")
@@ -146,7 +161,8 @@ class GanConfig:
             ppo_dis_type=str(cfg.PPO.dis_D_type),
             clip_param=float(cfg.PPO.clip_param), n_token=n_token,
             fused_sampler=str(cfg.TPU.gan_fused_decode),
-            chain_bwd=str(cfg.TPU.gan_chain_bwd))
+            chain_bwd=str(cfg.TPU.gan_chain_bwd),
+            decode_cache=str(cfg.TPU.gan_decode_cache))
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +228,27 @@ def prime_context_state(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
     from the live parameters, so r_w gradients flow from every step."""
     return xl.decode_state_from_mems(gen_params, xcfg,
                                      prime_context(gen_params, xcfg, gcfg, data))
+
+
+def gen_scan(gen_params, xcfg: xl.XLConfig, temperature, mems: xl.XLMems,
+             prev_onehot: torch.Tensor, detach_flags, g: torch.Tensor):
+    """Sequential straight-through sampling of len(detach_flags) tokens on
+    the rolling memory (either layout), differentiable: one
+    ``xl.forward_generate`` a token, the memory detached after each step
+    (so gradients reach a token's K/V through its own attention only).
+    ``detach_flags[t]`` stops the gradient through step t's input; g: [n,
+    bsz, V] noise (the JAX package's ``noise=`` uniforms u give g =
+    :func:`gumbel` (u)). Returns (samples [n, bsz, V], mems, last one-hot)."""
+    V = prev_onehot.shape[-1]
+    prev, samples = prev_onehot, []
+    for t, detach in enumerate(detach_flags):
+        hard = F.one_hot(prev.argmax(-1), V).to(prev.dtype).detach()
+        logits, mems = xl.forward_generate(gen_params, xcfg,
+                                           (hard if detach else prev)[None],
+                                           mems)
+        prev = xl.gumbel_softmax_st(logits[0], temperature, g[t])
+        samples.append(prev)
+    return torch.stack(samples), mems, prev
 
 
 def gen_scan_chunked(gen_params, xcfg: xl.XLConfig, temperature,
@@ -435,8 +472,21 @@ def sample_fake_chunks(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
     noise (:meth:`GanConfig.chunk_lengths`). Returns a list of (fake
     [sample_len, bsz, V], real ids [sample_len, bsz]); chunk boundaries
     detached. ``forward_only``: the caller does not differentiate through
-    the samples (the dis phase)."""
-    if gcfg.fused_sampler != "off":
+    the samples (the dis phase).
+
+    Routes as the JAX package: the chunked cache under ``cache_kv`` unless
+    ``decode_cache`` is "rolling", else :func:`gen_scan`; on the chunked
+    cache without note-status inputs, the fused sampler for forward-only
+    callers and the window recompute for differentiable ones (unless
+    ``fused_sampler`` is "off"), else :func:`gen_scan_chunked`."""
+    chunked = xcfg.cache_kv and gcfg.decode_cache != "rolling"
+    fused = chunked and gcfg.fused_sampler != "off"
+    if fused and xcfg.append_note_status:
+        if gcfg.fused_sampler == "on" and forward_only:
+            raise ValueError("fused_sampler='on' but the fused sampler does "
+                             "not take note-status inputs")
+        fused = False
+    if fused:
         if forward_only:
             return _sample_fake_chunks_fused(gen_params, xcfg, gcfg, data, noise)
         if (gcfg.sample_len <= gcfg.mem_len
@@ -445,7 +495,11 @@ def sample_fake_chunks(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
             return _sample_fake_chunks_recompute(gen_params, xcfg, gcfg, data,
                                                  temperature, noise)
     V, ctx, L_s = gcfg.n_token, gcfg.context_len, gcfg.sample_len
-    state = prime_context_state(gen_params, xcfg, gcfg, data)
+    if chunked:
+        mems, scan = (prime_context_state(gen_params, xcfg, gcfg, data),
+                      gen_scan_chunked)
+    else:
+        mems, scan = prime_context(gen_params, xcfg, gcfg, data), gen_scan
     real_ctx = F.one_hot(data[:ctx], V).float()
     last = real_ctx[-1]
     chunks = []
@@ -454,8 +508,10 @@ def sample_fake_chunks(gen_params, xcfg: xl.XLConfig, gcfg: GanConfig,
         if c > 0:
             flags[0] = True
             last = last.detach()
-        samples, state, last = gen_scan_chunked(gen_params, xcfg, temperature,
-                                                state, last, flags, g)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not forward_only):
+            samples, mems, last = scan(gen_params, xcfg, temperature, mems,
+                                       last, flags, g)
         if c == 0:
             chunks.append((torch.cat([real_ctx, samples]), data[0:L_s]))
         else:

@@ -1,11 +1,19 @@
 """Transformer-XL language model, as functions on tensors.
 
 Counterpart of ``transformer_gan_tpu/models/xl.py`` for MLE training and
-generation: the K/V-cached memory layout (``cache_kv``), the batch forward
-(training with dropout and per-row memory resets, or priming memory for
-generation), the NLL and logits heads, and the two-level chunked decode
-(big read-only K/V cache plus a per-chunk staging ring) that the fused
-sampling kernel runs.
+generation: both memory layouts (``cache_kv``: projected K/V, the layout
+the attention kernels read; without it the raw hidden states of every
+layer's input, QKV re-projected over [memory; segment] each call, the
+reference's own semantics), the batch forward (training with dropout and
+per-row memory resets, or priming memory for generation), note-status
+inputs, per-layer recompute (``remat``), the NLL and logits heads, and the
+two-level chunked decode (big read-only K/V cache plus a per-chunk staging
+ring) that the fused sampling kernel runs.
+
+The two layouts give the same forward. Their gradients differ: the raw
+path re-projects the detached memory hiddens through ``qkv_w``, so the
+memory's K/V pass gradient to it; the cached path stores them as
+constants.
 
 Parameters are a flat ``dict[str, Tensor]`` of fp32 master weights with the
 JAX tree's names (``word_emb``, ``layers.3.qkv_w``, ...); see ``convert.py``.
@@ -18,8 +26,8 @@ The GAN phases add soft one-hot inputs, the differentiable decode step
 (``detach_kv_writes``), the batched window recompute of a sampled chunk
 (:func:`decode_recompute_window`) and the straight-through gumbel head.
 
-Not ported yet: the raw-hidden memory path (``cache_kv=False``), remat and
-note-status inputs.
+The raw layout runs plain torch ops only, as the JAX package routes it
+(its fused attention needs ``cache_kv``).
 """
 from __future__ import annotations
 
@@ -28,9 +36,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..ops.attention import rel_attention_kv_fused, rel_attention_kv_fused_v2
-from .attention import build_attn_mask, layer_norm, rel_attention_kv
+from .attention import (build_attn_mask, layer_norm, rel_attention,
+                        rel_attention_kv)
 
 # Windows at least this long take the fused attention kernels on CUDA (the
 # JAX package's qlen >= 8 rule for its fused branch).
@@ -55,7 +65,7 @@ class XLConfig:
     vec_len: int = 0
     compute_dtype: str = "float32"
     softmax_dtype: str = "float32"
-    cache_kv: bool = True  # memory holds projected K/V (the only layout here)
+    cache_kv: bool = True  # memory holds projected K/V, else raw hiddens
 
     @property
     def d_head(self) -> int:
@@ -91,28 +101,38 @@ class XLConfig:
         )
 
 
-def _require_cache_kv(cfg: XLConfig) -> None:
-    if not cfg.cache_kv:
-        raise NotImplementedError(
-            "the port runs the K/V-cached memory layout only "
-            "(TPU.cache_kv: true); the raw-hidden path is not ported yet")
-
-
 class XLMems(NamedTuple):
-    """Segment-recurrence state: ``hids`` [n_layer, 2, n_head, bsz, mem_len,
-    d_head] projected K/V (h-major), valid slots at the tail, and ``count``,
-    the number of valid slots (a Python int: the host always knows it)."""
+    """Segment-recurrence state: ``hids``, valid slots at the tail, and
+    ``count``, the number of valid slots (a Python int: the host always
+    knows it). ``hids`` is [n_layer, 2, n_head, bsz, mem_len, d_head]
+    projected K/V (h-major) under ``cache_kv``, else [n_layer + 1, mem_len,
+    bsz, d_model] raw hiddens (entry i is layer i's input, entry 0 the
+    embedding after its dropout)."""
 
     hids: torch.Tensor
     count: int
 
+    @property
+    def batch_axis(self) -> int:
+        return 3 if self.hids.dim() == 6 else 2
+
+    @property
+    def mem_len(self) -> int:
+        return self.hids.shape[4 if self.hids.dim() == 6 else 1]
+
+    def rows(self, lo: int, hi: int) -> "XLMems":
+        """The memory of batch rows [lo, hi)."""
+        return XLMems(hids=self.hids.narrow(self.batch_axis, lo, hi - lo),
+                      count=self.count)
+
 
 def init_mems(cfg: XLConfig, mem_len: int, bsz: int, dtype=None,
               device=None) -> XLMems:
-    _require_cache_kv(cfg)
-    buf = torch.zeros((cfg.n_layer, 2, cfg.n_head, bsz, mem_len, cfg.d_head),
-                      dtype=dtype or cfg.cdtype, device=device)
-    return XLMems(hids=buf, count=0)
+    """Empty memory in the layout of ``cfg.cache_kv``."""
+    shape = ((cfg.n_layer, 2, cfg.n_head, bsz, mem_len, cfg.d_head)
+             if cfg.cache_kv else (cfg.n_layer + 1, mem_len, bsz, cfg.d_model))
+    return XLMems(hids=torch.zeros(shape, dtype=dtype or cfg.cdtype,
+                                   device=device), count=0)
 
 
 # ---------------------------------------------------------------------------
@@ -197,11 +217,17 @@ def positional_embedding(cfg: XLConfig, klen: int, device=None) -> torch.Tensor:
     return torch.cat([sinusoid.sin(), sinusoid.cos()], dim=-1)
 
 
-def embed_input(params, cfg: XLConfig, inp: torch.Tensor) -> torch.Tensor:
+def embed_input(params, cfg: XLConfig, inp: torch.Tensor,
+                status_vec=None) -> torch.Tensor:
     """Token embedding of int ids [q, b] or soft one-hots [q, b, V] (which
-    carry the straight-through gradients) -> [q, b, d_model]."""
-    emb_w = params["word_emb"].to(cfg.cdtype)
-    emb = inp.to(cfg.cdtype) @ emb_w if inp.is_floating_point() else emb_w[inp]
+    carry the straight-through gradients) -> [q, b, d_model]; with
+    note-status inputs, plus ``status_vec`` [q, b, vec_len] (held-note bits)
+    times ``status_emb``."""
+    cd = cfg.cdtype
+    emb_w = params["word_emb"].to(cd)
+    emb = inp.to(cd) @ emb_w if inp.is_floating_point() else emb_w[inp]
+    if cfg.append_note_status and status_vec is not None:
+        emb = emb + status_vec.to(cd) @ params["status_emb"].to(cd)
     return emb * (cfg.d_model ** 0.5)
 
 
@@ -232,16 +258,29 @@ def decoder_layer(layer, cfg: XLConfig, core_out, mems_i, pos_emb,
     generator on the activations' device) turns dropout on; the fused
     kernels draw attention dropout from ``attn_seed``, the plain path from
     ``gen``. ``route`` ("plain", "v2", "v1") overrides
-    :func:`attention_route`."""
+    :func:`attention_route`. ``mems_i``: the layer's cached K/V [2, h, b, M,
+    dh], or under raw memory its input hiddens [M, b, d] (plain attention
+    over [memory; segment]). Returns (out, [k_cur, v_cur] or None under raw
+    memory)."""
     cd = cfg.cdtype
     if cfg.pre_lnorm:
         w_in = layer_norm(core_out, layer["attn_ln_scale"],
                           layer["attn_ln_bias"])
     else:
         w_in = core_out
-    route = route or attention_route(core_out, mems_i.shape[-2])
-    if route == "plain":
-        attn_vec, k_cur, v_cur = rel_attention_kv(
+    kv = None
+    if cfg.cache_kv:
+        route = route or attention_route(core_out, mems_i.shape[-2])
+    if not cfg.cache_kv:
+        cat = torch.cat([mems_i, core_out], dim=0)
+        cat_in = (layer_norm(cat, layer["attn_ln_scale"],
+                             layer["attn_ln_bias"]) if cfg.pre_lnorm else cat)
+        attn_vec = rel_attention(
+            w_in, cat_in, pos_emb, layer["qkv_w"].to(cd), layer["r_w"].to(cd),
+            r_w_bias, r_r_bias, attn_mask, cfg.n_head, cfg.d_head,
+            softmax_dtype=cfg.sdtype, dropatt=cfg.dropatt, generator=gen)
+    elif route == "plain":
+        attn_vec, *kv = rel_attention_kv(
             w_in, mems_i[0], mems_i[1], pos_emb, layer["qkv_w"].to(cd),
             layer["r_w"].to(cd), r_w_bias, r_r_bias, attn_mask,
             cfg.n_head, cfg.d_head, softmax_dtype=cfg.sdtype,
@@ -249,7 +288,7 @@ def decoder_layer(layer, cfg: XLConfig, core_out, mems_i, pos_emb,
     else:
         fused = (rel_attention_kv_fused_v2 if route == "v2"
                  else rel_attention_kv_fused)
-        attn_vec, k_cur, v_cur = fused(
+        attn_vec, *kv = fused(
             w_in, mems_i[0], mems_i[1], pos_emb, layer["qkv_w"].to(cd),
             layer["r_w"].to(cd), r_w_bias, r_r_bias, attn_count, reset,
             cfg.n_head, cfg.d_head, same_length=same_length,
@@ -267,22 +306,43 @@ def decoder_layer(layer, cfg: XLConfig, core_out, mems_i, pos_emb,
     h = _dropout(h @ layer["ff_w2"].to(cd) + layer["ff_b2"].to(cd),
                  cfg.dropout, gen)
     if cfg.pre_lnorm:
-        return out + h, (k_cur, v_cur)
-    return layer_norm(out + h, layer["ff_ln_scale"],
-                      layer["ff_ln_bias"]), (k_cur, v_cur)
+        return out + h, kv
+    return layer_norm(out + h, layer["ff_ln_scale"], layer["ff_ln_bias"]), kv
 
 
 # ---------------------------------------------------------------------------
 # Core forward
 # ---------------------------------------------------------------------------
 
+def _layer_remat(layer, cfg, core_out, mems_i, pos_emb, *args, gen=None,
+                 **kw):
+    """:func:`decoder_layer` with its activations recomputed in the
+    backward (``torch.utils.checkpoint``). The recompute restores ``gen`` to
+    its state before the layer, so it draws the forward's dropout masks
+    again; the fused kernels' dropout is a hash of its seed and replays by
+    itself."""
+    state = gen.get_state() if gen is not None else None
+
+    def run(core_out, mems_i, pos_emb):
+        if state is not None:
+            gen.set_state(state)
+        return decoder_layer(layer, cfg, core_out, mems_i, pos_emb, *args,
+                             gen=gen, **kw)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, core_out, mems_i, pos_emb, use_reentrant=False,
+        preserve_rng_state=False)
+
+
 def xl_forward(params, cfg: XLConfig, inp: torch.Tensor, mems: XLMems,
-               reset_mems=None, *, same_length: bool = False, pos_emb=None,
-               generator: torch.Generator | None = None,
-               route: str | None = None):
+               reset_mems=None, *, status_vec=None, same_length: bool = False,
+               pos_emb=None, generator: torch.Generator | None = None,
+               route: str | None = None, remat: bool = False):
     """Run the decoder stack over ids [q, b]; ``reset_mems`` [b] bool masks
-    the whole memory of those rows. Returns (core_out [q, b, d], new_mems):
-    the ring keeps the newest mem_len K/V slots, detached.
+    the whole memory of those rows; ``status_vec`` [q, b, vec_len] the
+    note-status inputs (with ``cfg.append_note_status``). Returns (core_out
+    [q, b, d], new_mems): the ring keeps the newest mem_len slots (K/V, or
+    each layer's input hiddens under raw memory), detached.
 
     Training: ``generator``, a CPU generator (the step's), turns dropout on.
     It draws one seed per layer for the fused kernels' attention dropout and
@@ -291,19 +351,24 @@ def xl_forward(params, cfg: XLConfig, inp: torch.Tensor, mems: XLMems,
     forward is the inference forward; callers that need no gradient wrap it
     in ``torch.no_grad()``. ``route`` forces every layer's attention:
     "plain" (``rel_attention_kv``), "v2" or "v1" (the fused contracts); None
-    follows :func:`attention_route`."""
-    _require_cache_kv(cfg)
+    follows :func:`attention_route`. Raw memory runs ``rel_attention`` on
+    any device (route None or "plain"), as the JAX package does: its fused
+    attention needs the K/V cache. ``remat`` recomputes each layer in the
+    backward (:func:`_layer_remat`)."""
     if route not in (None, "plain", "v2", "v1"):
         raise ValueError(f"unknown attention route {route!r}")
+    if not cfg.cache_kv and route not in (None, "plain"):
+        raise ValueError(f"raw-hidden memory has no {route!r} attention")
     qlen = inp.shape[0]
-    mem_len = mems.hids.shape[4]
+    mem_len = mems.mem_len
     cd = cfg.cdtype
     gen, seeds = None, [None] * cfg.n_layer
     if generator is not None:
         seeds = torch.randint(0, 2 ** 31 - 1, (cfg.n_layer + 1,),
                               generator=generator).tolist()
         gen = torch.Generator(device=inp.device).manual_seed(seeds.pop())
-    core_out = _dropout(embed_input(params, cfg, inp), cfg.dropout, gen)
+    core_out = _dropout(embed_input(params, cfg, inp, status_vec),
+                        cfg.dropout, gen)
     attn_mask = build_attn_mask(qlen, mem_len, mems.count, same_length,
                                 reset_mems, device=inp.device)
     if pos_emb is None:
@@ -313,20 +378,26 @@ def xl_forward(params, cfg: XLConfig, inp: torch.Tensor, mems: XLMems,
     r_w_bias = params["r_w_bias"].to(cd)
     r_r_bias = params["r_r_bias"].to(cd)
 
-    kvs = []
+    layer_fn = _layer_remat if remat else decoder_layer
+    hids, kvs = [core_out], []
     for i in range(cfg.n_layer):
-        core_out, kv = decoder_layer(
+        core_out, kv = layer_fn(
             layer_params(params, i), cfg, core_out, mems.hids[i].to(cd),
             pos_emb, r_w_bias, r_r_bias, attn_mask, mems.count, same_length,
-            reset_mems, gen, seeds[i], route)
+            reset_mems, gen=gen, attn_seed=seeds[i], route=route)
+        hids.append(core_out)
         kvs.append(kv)
     core_out = _dropout(core_out, cfg.dropout, gen)
 
     if mem_len == 0:
         return core_out, mems
-    stacked = torch.stack([torch.stack(kv) for kv in kvs]).detach().to(
-        mems.hids.dtype)                                  # [L, 2, h, b, q, dh]
-    new_hids = torch.cat([mems.hids, stacked], dim=4)[..., -mem_len:, :]
+    if cfg.cache_kv:
+        stacked = torch.stack([torch.stack(kv) for kv in kvs])  # [L, 2, h, b, q, dh]
+        axis = 4
+    else:
+        stacked, axis = torch.stack(hids), 1                    # [L+1, q, b, d]
+    new_hids = torch.cat([mems.hids, stacked.detach().to(mems.hids.dtype)],
+                         dim=axis).narrow(axis, qlen, mem_len)
     return core_out, XLMems(hids=new_hids.contiguous(),
                             count=min(mems.count + qlen, mem_len))
 
@@ -340,24 +411,28 @@ def compute_logits(params, cfg: XLConfig, hidden: torch.Tensor) -> torch.Tensor:
 
 def forward_nll(params, cfg: XLConfig, data: torch.Tensor,
                 target: torch.Tensor, reset_mems, mems: XLMems, *,
-                same_length: bool = False,
+                status_vec=None, same_length: bool = False,
                 generator: torch.Generator | None = None,
-                route: str | None = None):
+                route: str | None = None, remat: bool = False):
     """Per-token NLL head with an fp32 log-softmax. Returns (nll [q, b] fp32,
-    new_mems); ``generator`` and ``route`` as :func:`xl_forward`."""
+    new_mems); the keywords as :func:`xl_forward`."""
     hidden, new_mems = xl_forward(params, cfg, data, mems, reset_mems,
+                                  status_vec=status_vec,
                                   same_length=same_length,
-                                  generator=generator, route=route)
+                                  generator=generator, route=route,
+                                  remat=remat)
     logp = torch.log_softmax(compute_logits(params, cfg, hidden).float(),
                              dim=-1)
     return -torch.gather(logp, -1, target[..., None])[..., 0], new_mems
 
 
 def forward_generate(params, cfg: XLConfig, data: torch.Tensor, mems: XLMems,
-                     *, same_length: bool = False, pos_emb=None):
+                     *, status_vec=None, same_length: bool = False,
+                     pos_emb=None):
     """Logits head for incremental decoding. Returns (logits [q, b, V],
     new_mems)."""
     hidden, new_mems = xl_forward(params, cfg, data, mems,
+                                  status_vec=status_vec,
                                   same_length=same_length, pos_emb=pos_emb)
     return compute_logits(params, cfg, hidden), new_mems
 
@@ -395,7 +470,8 @@ def precompute_r_heads(params, cfg: XLConfig, R: int, device=None) -> torch.Tens
 
 def decode_state_from_mems(params, cfg: XLConfig, mems: XLMems) -> DecodeState:
     """cache_kv memory [L, 2, h, b, M, dh] -> per-layer dense K, V [b, M, hd]."""
-    _require_cache_kv(cfg)
+    if not cfg.cache_kv:
+        raise ValueError("the chunked decode needs the cache_kv memory layout")
     b, M = mems.hids.shape[3], mems.hids.shape[4]
     hd = cfg.n_head * cfg.d_head
 
@@ -460,11 +536,12 @@ def _stage_write(buf: torch.Tensor, t: int, row: torch.Tensor) -> torch.Tensor:
 
 def decode_chunk_step(params, cfg: XLConfig, inp: torch.Tensor,
                       state: DecodeState, stage: tuple, t: int, *,
-                      same_length: bool = True,
+                      same_length: bool = True, status_vec=None,
                       detach_kv_writes: bool = False):
     """One-token forward at chunk step ``t`` for ids [bsz] or soft one-hots
-    [bsz, V]. Writes this token's K/V into row ``t`` of ``stage`` and returns
-    (logits [bsz, V], stage); in place unless autograd records the step.
+    [bsz, V] (``status_vec`` [bsz, vec_len]: the note-status input). Writes
+    this token's K/V into row ``t`` of ``stage`` and returns (logits [bsz,
+    V], stage); in place unless autograd records the step.
 
     ``detach_kv_writes``: the staged K/V are written detached while this
     step's own attention sees the live projections (the GAN sampling scan:
@@ -483,7 +560,8 @@ def decode_chunk_step(params, cfg: XLConfig, inp: torch.Tensor,
     mask_st = torch.arange(C, device=dev) > t
     mask = torch.cat([mask_big, mask_st])[None, None, :]
 
-    x = embed_input(params, cfg, inp[None])[0]                  # [b, hd]
+    sv = status_vec[None] if status_vec is not None else None
+    x = embed_input(params, cfg, inp[None], sv)[0]              # [b, hd]
     r_w_bias = params["r_w_bias"].to(cd)
     r_r_bias = params["r_r_bias"].to(cd)
     new_stage = []
@@ -538,14 +616,15 @@ def decode_chunk_step(params, cfg: XLConfig, inp: torch.Tensor,
 
 
 def decode_recompute_window(params, cfg: XLConfig, inp: torch.Tensor, k_mem,
-                            v_mem, count: int, *,
+                            v_mem, count: int, *, status_vec=None,
                             collect_residuals: bool = False):
     """Batched recompute of ``n`` sequential :func:`decode_chunk_step`
     forwards (``detach_kv_writes`` semantics) in one parallel pass.
 
     inp: [n, bsz, V] one-hot inputs the steps saw (n <= mem_len); k_mem,
     v_mem: per-layer [n_head, bsz, M, d_head] cache K/V at the window start
-    (detached); count: valid tail slots. Queries are live, every K/V lane
+    (detached); count: valid tail slots; status_vec [n, bsz, vec_len]: the
+    note-status inputs. Queries are live, every K/V lane
     detached but each query's own, the position term live; query i sees big
     lanes j >= max(M - count, i) and window lanes s <= i (the GAN's window,
     ``same_length`` off).
@@ -564,7 +643,7 @@ def decode_recompute_window(params, cfg: XLConfig, inp: torch.Tensor, k_mem,
         raise ValueError(f"recompute window n={n} exceeds mem_len={M}")
     cd = cfg.cdtype
     dev = inp.device
-    x = embed_input(params, cfg, inp)                           # [n, b, hd]
+    x = embed_input(params, cfg, inp, status_vec)               # [n, b, hd]
 
     i_q = torch.arange(n, device=dev)[:, None]
     mask_big = torch.arange(M, device=dev)[None, :] < torch.clamp(

@@ -60,13 +60,16 @@ def local_rows(x, axis: int = 0, groups: int = 1):
 
 def batch_rows(x, batch_chunk: int = 1, axis: int = 1):
     """The rank's rows of a global ``[tgt, bsz]`` batch (``[bsz]`` flags with
-    ``axis`` 0) of ``batch_chunk`` micro-batches."""
+    ``axis`` 0; the note-status vectors ``[tgt, bsz, vec_len]`` as the
+    tokens) of ``batch_chunk`` micro-batches."""
     return local_rows(x, axis=axis, groups=batch_chunk)
 
 
 def mems_rows(mems: xl.XLMems) -> xl.XLMems:
-    """The rank's rows of an XL memory ``[L, 2, H, B, M, dh]``."""
-    return xl.XLMems(hids=local_rows(mems.hids, axis=3), count=mems.count)
+    """The rank's rows of an XL memory: K/V ``[L, 2, H, B, M, dh]`` or raw
+    hiddens ``[L + 1, M, B, d]``."""
+    return xl.XLMems(hids=local_rows(mems.hids, axis=mems.batch_axis),
+                     count=mems.count)
 
 
 def broadcast_state(*states) -> None:

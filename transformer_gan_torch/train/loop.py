@@ -19,6 +19,13 @@ the BERT classifier's held-out accuracy against the validation pieces.
 The device is the card: ``device=None`` means CUDA and raises without one;
 the CPU (the plain path) only when the caller passes ``"cpu"``.
 
+The model's switches follow the config: ``TPU.cache_kv`` off runs the
+raw-hidden memory (plain attention, as in the JAX package),
+``TRAIN.append_note_status`` feeds the iterators' held-note vectors into the
+embedding, ``TPU.remat`` recomputes each decoder layer in the backward, and
+``TPU.profile_dir`` records a ``torch.profiler`` trace (CPU and CUDA
+activities) of steps 10 to 15 into ``trace_rank{r}.json`` there.
+
 Data parallel under torchrun (``parallel/mesh``): each rank reads its own
 train and dis streams (``batch_size / world`` rows, seed ``seed + 1000
 rank``) and its share of the eval pieces; the generator's weights and every
@@ -57,6 +64,10 @@ from . import step as tstep
 from .losses import get_fixed_temperature
 
 
+# Steps whose work TPU.profile_dir traces: from the end of step 10 to the
+# end of step 15, as in the JAX package.
+PROFILE_START, PROFILE_STOP = 10, 15
+
 # The metrics' wave widths, fastest first: K3's generated tokens/s rises
 # with the lanes up to its 32 (chip_smoke numbers.metrics, PERF.md). A wave
 # takes the first width that divides the sample count and is at most
@@ -71,11 +82,8 @@ def wave_width(num_samples: int, batch_size: int) -> int:
 
 def _refuse_unported(cfg) -> None:
     check_gan_config(cfg)
-    if cfg.TPU.remat:
-        raise NotImplementedError("TPU.remat is not ported yet")
-    if cfg.TPU.profile_dir:
-        raise NotImplementedError("TPU.profile_dir is not ported yet")
     if str(cfg.TPU.param_dtype) != "float32":
+        # as the JAX package: the flat optimizer state assumes fp32 masters
         raise NotImplementedError("only float32 master parameters")
 
 
@@ -137,7 +145,8 @@ class Trainer:
             raise ValueError("DISCRIMINATOR.start_iter < max_step but no "
                              "discriminator configured")
 
-        self.xcfg = xl.XLConfig.from_cfg(cfg, len(self.vocab))
+        self.xcfg = xl.XLConfig.from_cfg(cfg, len(self.vocab),
+                                         self.vocab.vec_len)
         params = xl.init_xl_params(
             self.xcfg, seed=seed, base_init=tuple(cfg.INITIALIZER.base_init),
             embed_init=tuple(cfg.INITIALIZER.embed_init))
@@ -166,7 +175,7 @@ class Trainer:
         self.train_step_fn = tstep.make_mle_train_step(
             self.xcfg, self.optimizer, cfg.TRAIN.batch_chunk,
             self.vocab.pad_id, use_mle=cfg.TRAIN.use_mle,
-            same_length=cfg.MODEL.same_length)
+            same_length=cfg.MODEL.same_length, remat=bool(cfg.TPU.remat))
         self.eval_step_fn = tstep.make_eval_step(self.xcfg, self.vocab.pad_id)
 
         from ..metrics.bleu import BLEU
@@ -247,12 +256,14 @@ class Trainer:
         mems = xl.init_mems(self.xcfg, cfg.EVALUATE.mem_length,
                             cfg.EVALUATE.batch_size, device=dev)
         params = {k: v.detach() for k, v in self.state.params().items()}
-        for data, target, reset_all, _, _ in eval_iter():
+        for data, target, reset_all, _, status_vec in eval_iter():
             if reset_all:
                 mems = tstep.reset_eval_mems(mems)
             nll_sum, cnt, mems = self.eval_step_fn(
                 params, torch.from_numpy(data).to(dev),
-                torch.from_numpy(target).to(dev), mems)
+                torch.from_numpy(target).to(dev), mems,
+                None if status_vec is None
+                else torch.from_numpy(status_vec).to(dev))
             y = nll_sum - comp
             t = total_nll + y
             comp = (t - total_nll) - y
@@ -346,8 +357,9 @@ class Trainer:
         dev = self.device
         log_acc = None
         log_start = time.time()
+        profiler = None
         logging.info("Start training")
-        for data, target, reset_mems, _, _ in self.train_iter():
+        for data, target, reset_mems, _, status_vec in self.train_iter():
             if self.gan is not None:
                 # temperature annealing: the generator's is 1 / beta
                 self.gan.temperature = 1.0 / get_fixed_temperature(
@@ -356,6 +368,9 @@ class Trainer:
             batch = (torch.from_numpy(tstep.chunk_batch(data, bc)).to(dev),
                      torch.from_numpy(tstep.chunk_batch(target, bc)).to(dev),
                      torch.from_numpy(tstep.chunk_rows(reset_mems, bc)).to(dev))
+            if status_vec is not None:
+                batch += (torch.from_numpy(
+                    tstep.chunk_status(status_vec, bc)).to(dev),)
             self.state, metrics = self.train_step_fn(self.state, *batch)
             d = cfg.DISCRIMINATOR
             if self.gan is not None and self.train_step_num > d.start_iter:
@@ -364,6 +379,10 @@ class Trainer:
                 if self.train_step_num % d.gen_loss_freq == 0:
                     self.gan.gen_phase(self.train_step_num)
             self.train_step_num += 1
+            if cfg.TPU.profile_dir and self.train_step_num == PROFILE_START:
+                profiler = self._start_profile()
+            if profiler is not None and self.train_step_num == PROFILE_STOP:
+                profiler = self._stop_profile(profiler)
             log_acc = (metrics if log_acc is None
                        else {k: log_acc[k] + metrics[k] for k in log_acc})
 
@@ -395,9 +414,31 @@ class Trainer:
                 logging.info("-" * 100)
                 logging.info("End of training")
                 break
+        if profiler is not None:
+            self._stop_profile(profiler)
         # which kernels this process went through (_native.LAUNCHES)
         logging.info("Kernel launches: %s", json.dumps(
             {k: v for k, v in _native.LAUNCHES.items() if v}))
+
+    def _start_profile(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
+        logging.info("profiler trace started -> %s", self.cfg.TPU.profile_dir)
+        return profiler
+
+    def _stop_profile(self, profiler) -> None:
+        """Stop the trace and write it (the device's work waited for)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        os.makedirs(self.cfg.TPU.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.TPU.profile_dir,
+                            f"trace_rank{self.rank}.json")
+        profiler.export_chrome_trace(path)
+        logging.info("profiler trace saved -> %s", path)
 
     # ------------------------------------------------------------------
     def final_best_eval(self) -> float:

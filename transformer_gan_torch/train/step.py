@@ -86,20 +86,33 @@ def chunk_seeds(seed: int, step: int, batch_chunk: int) -> list[int]:
         pmesh.rank_seed(seed), step)).tolist()
 
 
+def chunk_status(status_vec: np.ndarray, batch_chunk: int) -> np.ndarray:
+    """[tgt, bsz, vec_len] note-status vectors -> [chunk, tgt, bsz/chunk,
+    vec_len], split along the batch axis as :func:`chunk_batch` splits the
+    tokens."""
+    tgt, bsz, n = status_vec.shape
+    return status_vec.reshape(tgt, batch_chunk, bsz // batch_chunk,
+                              n).swapaxes(0, 1)
+
+
 def make_mle_train_step(xcfg: xl.XLConfig, optimizer: FusedOptimizer,
                         batch_chunk: int, pad_id: int, use_mle: bool = True,
-                        same_length: bool = False, route: str | None = None):
+                        same_length: bool = False, route: str | None = None,
+                        remat: bool = False):
     """fn(state, data [C, tgt, bsz_c], target [C, tgt, bsz_c],
-    reset [C, bsz_c]) -> (state, metrics); inputs are tensors on the
-    state's device, chunked with ``chunk_batch`` / ``chunk_rows`` (the
-    rank's rows when data parallel). Metrics are device scalars of the
-    rank's rows: ``loss_weighted`` (the masked NLL sum), ``tokens`` and the
-    pre-clip ``grad_norm`` of the all-reduced gradient. Dropout is drawn
-    from generators seeded by (state.seed, state.step, rank)
-    (:func:`chunk_seeds`, ``xl.xl_forward``); ``route`` forces the attention
-    route (``xl.xl_forward``)."""
+    reset [C, bsz_c], status_c=None) -> (state, metrics); inputs are tensors
+    on the state's device, chunked with ``chunk_batch`` / ``chunk_rows`` /
+    :func:`chunk_status` (the rank's rows when data parallel); ``status_c``
+    [C, tgt, bsz_c, vec_len], the note-status inputs. Metrics are device
+    scalars of the rank's rows: ``loss_weighted`` (the masked NLL sum),
+    ``tokens`` and the pre-clip ``grad_norm`` of the all-reduced gradient.
+    Dropout is drawn from generators seeded by (state.seed, state.step,
+    rank) (:func:`chunk_seeds`, ``xl.xl_forward``); ``route`` forces the
+    attention route and ``remat`` recomputes each layer in the backward
+    (``xl.xl_forward``)."""
 
-    def train_step(state: TrainState, data_c, target_c, reset_c):
+    def train_step(state: TrainState, data_c, target_c, reset_c,
+                   status_c=None):
         seeds = chunk_seeds(state.seed, state.step, batch_chunk)
         # every micro-batch's token count over all ranks, before any backward
         counts = pmesh.all_reduce_sum_((target_c != pad_id).sum(dim=(1, 2)))
@@ -112,8 +125,10 @@ def make_mle_train_step(xcfg: xl.XLConfig, optimizer: FusedOptimizer,
             chunk_gen = torch.Generator().manual_seed(seeds[c])
             nll, mems_c = xl.forward_nll(
                 params, xcfg, data_c[c], target_c[c], reset_c[c],
-                state.mems[c], same_length=same_length, generator=chunk_gen,
-                route=route)
+                state.mems[c],
+                status_vec=None if status_c is None else status_c[c],
+                same_length=same_length, generator=chunk_gen, route=route,
+                remat=remat)
             mask = target_c[c] != pad_id
             cnt = counts[c]
             # pad-masked mean over the global micro-batch; 0 (and no
@@ -138,12 +153,14 @@ def make_mle_train_step(xcfg: xl.XLConfig, optimizer: FusedOptimizer,
 
 
 def make_eval_step(xcfg: xl.XLConfig, pad_id: int):
-    """(params, data, target, mems) -> (nll_sum, token_count, new_mems):
-    one evaluation window with same_length masking and no dropout."""
+    """(params, data, target, mems, status_vec=None) -> (nll_sum,
+    token_count, new_mems): one evaluation window with same_length masking
+    and no dropout."""
 
     @torch.no_grad()
-    def eval_step(params, data, target, mems):
+    def eval_step(params, data, target, mems, status_vec=None):
         nll, new_mems = xl.forward_nll(params, xcfg, data, target, None, mems,
+                                       status_vec=status_vec,
                                        same_length=True)
         mask = target != pad_id
         return torch.where(mask, nll, 0.0).sum(), mask.sum(), new_mems
