@@ -114,7 +114,19 @@ Phases, one line each; any failure exits non-zero:
    ``TPU.profile_dir`` (16 steps, the trace holds K1f's and K1b's kernels);
    ``tools.gen_npy_samples`` on the metrics run at its defaults (16 x 2048,
    wave 4; K3) and bert_score on its directory;
-11. numbers, as listed under 7 and 8, and the variants' (numbers.variants:
+11. the trajectory tools (check.trajectory): ``tools.convergence_parity``
+   at the baseline widths (2 layers, B 32, tgt 128, M 256), 150 steps and
+   an eval every 50 from one set of weights on one stream, the fp32 kernel
+   route (K1f, K1b) and the bf16 kernel route against the fp32 plain
+   route, each within its band, and a control (warmup 0) that must leave
+   the bf16 band; ``tools.gan_parity`` on the cached layout at the cnn
+   widths (2 layers, B 16, M 64), 6 dis + gen phase pairs on recorded
+   batches and uniforms, the fp32 kernel route (K4, K6) and the fp32
+   per-token sampler with the recomputing chain (K5, K7) against the fp32
+   plain route (every logged loss within its band, the weights by the
+   drift rule), the bf16 kernel route's losses recorded; every run's
+   launches read, zeros included (the plain routes launch nothing);
+12. numbers, as listed under 7 and 8, and the variants' (numbers.variants:
    the bf16 MLE step on the cache, on raw memory, with note status and with
    remat, each with its peak memory; generation us/token at M 4146, K3
    against the raw memory's rolling loop).
@@ -302,7 +314,10 @@ def main() -> None:
     variant_launches = run_variants_path(_native, mle_run, metrics_run,
                                          bert_ckpt)
 
-    # 11. numbers
+    # 11. the trajectory tools, kernel route against plain route
+    traj_launches = run_trajectory_check(_native)
+
+    # 12. numbers
     numbers = measure(kc, card)
     numbers.update(measure_train(kc, card))
     numbers.update(measure_gan(kc, card))
@@ -320,7 +335,8 @@ def main() -> None:
              "codec": codec_launches,
              "gan": gan_launches, "gan_bert": span_launches,
              "ppo": ppo_launches, "metrics": metrics_launches,
-             "data_parallel": dp_launches, "variants": variant_launches}
+             "data_parallel": dp_launches, "variants": variant_launches,
+             "trajectory": traj_launches}
     launches = {k: sum(p[k] for p in paths.values()) for k in _native.LAUNCHES}
     by_path = {k: {n: p[k] for n, p in paths.items()} for k in _native.LAUNCHES}
 
@@ -2533,6 +2549,164 @@ def run_variants_path(_native, mle_run: str, metrics_run: str,
     score = run_bert_score(pieces, bert_ckpt, n)
     phase("main_path.variants", launches=total, score_mean=score["mean"],
           seconds=time.perf_counter() - t_start)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The trajectory tools: MLE and GAN runs, kernel route against plain route
+# ---------------------------------------------------------------------------
+
+# The bands were stated in PERF.md before the first card run. MLE:
+# every train and val NLL of a run against the fp32 plain route's; the
+# control (TRAIN.warmup_step 0, under the inv_sqrt rule the lr falls to
+# lr_min after the first update) must land beyond the bf16 band. GAN: every
+# logged dis and gen loss of the fp32 kernel routes against the fp32 plain
+# route's, and the weights by the drift rule of
+# tests/test_torch_gan_parity.py (within 2 n lr after n Adam updates, at
+# most 5% of them beyond 0.1 lr).
+TRAJ_STEPS, TRAJ_EVAL_EVERY, TRAJ_PHASES = 150, 50, 6
+TRAJ_TOL = {"mle_f32": 1e-3, "mle_bf16": 5e-2, "gan_f32": 1e-4,
+            "drift_share": 0.05}
+
+
+def _traj_run(_native, fn) -> tuple:
+    """``fn()`` with the launch counters set to 0 just before; returns
+    (its result, seconds, the counters that moved)."""
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            {k: v for k, v in _native.LAUNCHES.items() if v})
+
+
+def run_trajectory_check(_native) -> dict:
+    """check.trajectory: ``tools.convergence_parity`` at the baseline
+    widths (2 layers, B 32, tgt 128, M 256; 150 steps, an eval every 50)
+    from one set of weights on one stream: the fp32 plain route (the
+    reference), the fp32 kernel route (K1f, K1b), the bf16 kernel route and
+    the control; ``tools.gan_parity`` on the cached layout at the cnn
+    widths (2 layers, B 16, tgt 64, mem 64, context 5; 6 phase pairs) on
+    one set of recorded batches and uniforms: the fp32 plain route, the
+    fp32 kernel route (K4, K6), the same on the per-token sampler and the
+    recomputing chain (K5, K7), and the bf16 kernel route (its losses
+    recorded, held to finiteness only: bf16 argmax near-ties change the
+    samples). Each run's launches are read, zeros included."""
+    import math
+    import shutil
+
+    import numpy as np
+    from transformer_gan_torch.tools import convergence_parity as cp
+    from transformer_gan_torch.tools import gan_parity as gp
+    t_start = time.perf_counter()
+    total = dict.fromkeys(_native.LAUNCHES, 0)
+
+    def need(label, launches, positive):
+        """The kernels a kernel-route run must launch; a plain-route run
+        (no ``positive``) launches none."""
+        missing = [k for k in positive if not launches.get(k)]
+        if missing:
+            fail(f"{label} never launched {missing}: {launches}")
+        if not positive and launches:
+            fail(f"{label} on the plain route launched {launches}")
+        for k, v in launches.items():
+            total[k] += v
+
+    # MLE
+    w = cp.WIDTHS["baseline"]
+    train_p, val_p = cp.make_corpus(0, w["n_train"], w["n_val"])
+    train_b, val_b, pad = cp.record_batches(train_p, val_p, TRAJ_STEPS,
+                                            width="baseline")
+    init = cp.init_params("baseline")
+    mle = {}
+    for name, kw, positive in (
+            ("plain_f32", {"route": "plain"}, ()),
+            ("kernel_f32", {}, ("xl_attn_fwd_v2", "xl_attn_bwd_v2")),
+            ("kernel_bf16", {"dtype": "bfloat16"},
+             ("xl_attn_fwd_v2", "xl_attn_bwd_v2", "xl_attn_fwd_v2_tc",
+              "xl_attn_bwd_v2_tc")),
+            ("control_warmup_0", {"warmup": 0},
+             ("xl_attn_fwd_v2", "xl_attn_bwd_v2"))):
+        (tr, va), secs, launches = _traj_run(_native, lambda: cp.run_port(
+            train_b, val_b, pad, TRAJ_EVAL_EVERY, init, "adam",
+            device="cuda:0", cache_kv=True, width="baseline", **kw))
+        need(f"the {name} MLE trajectory", launches, positive)
+        mle[name] = {"train_nll": tr, "val_nll": va, "seconds": secs,
+                     "launches": launches}
+    ref = mle["plain_f32"]
+    for name, run in mle.items():
+        if not all(map(math.isfinite, run["train_nll"] + run["val_nll"])):
+            fail(f"the {name} MLE trajectory is not finite: {run}")
+        if name != "plain_f32":
+            run["gap"] = max(cp.max_gap(run["train_nll"], ref["train_nll"]),
+                             cp.max_gap(run["val_nll"], ref["val_nll"]))
+    mle_ok = (mle["kernel_f32"]["gap"] <= TRAJ_TOL["mle_f32"]
+              and mle["kernel_bf16"]["gap"] <= TRAJ_TOL["mle_bf16"]
+              and mle["control_warmup_0"]["gap"] > TRAJ_TOL["mle_bf16"])
+
+    # GAN
+    data_dir = os.path.join(ROOT, "build", "chip_smoke", "trajectory", "gan")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    recorded, noises = gp.make_data(TRAJ_PHASES, data_dir, width="cnn")
+    gen_init, dis_init = gp.init_weights(gp.make_cfg(False, True, "cnn"))
+    gan = {}
+    for name, dtype, route, tpu, env, positive in (
+            ("plain_f32", "float32", "plain", {}, None, ()),
+            ("kernel_f32", "float32", "kernel", {}, None,
+             ("decode_chunk", "chain_bwd_res")),
+            ("kernel_f32_step_recompute", "float32", "kernel",
+             {"gan_chain_bwd": "kernel_recompute"}, "0",
+             ("decode_step", "chain_bwd_recompute")),
+            ("kernel_bf16", "bfloat16", "kernel", {}, None,
+             ("decode_chunk", "decode_chunk_tc", "chain_bwd_res",
+              "chain_bwd_res_tc"))):
+        cfg = gp.make_cfg(False, True, "cnn", dtype).merge({"TPU": tpu})
+        if env is not None:
+            os.environ["TGTPU_CHUNK_SAMPLER"] = env
+        (dis, gen, gen_w, dis_w), secs, launches = _traj_run(
+            _native, lambda: gp.run_port(
+                cfg, data_dir, recorded, gp.recorded_draws(noises, "cuda:0"),
+                gen_init, dis_init, device="cuda:0", route=route))
+        os.environ.pop("TGTPU_CHUNK_SAMPLER", None)
+        need(f"the {name} GAN trajectory", launches, positive)
+        if not all(map(math.isfinite, dis + gen)):
+            fail(f"the {name} GAN trajectory is not finite: {dis} {gen}")
+        gan[name] = {"dis_loss": dis, "gen_loss": gen, "seconds": secs,
+                     "launches": launches, "weights": (gen_w, dis_w)}
+    ref = gan["plain_f32"]
+    ref_w = dict(zip(("gen", "dis"), ref.pop("weights")))
+    lr = {"gen": gp.GEN_LR, "dis": gp.DIS_LR}
+    for name, run in gan.items():
+        if name == "plain_f32":
+            continue
+        run["gap"] = max(cp.max_gap(run["dis_loss"], ref["dis_loss"]),
+                         cp.max_gap(run["gen_loss"], ref["gen_loss"]))
+        run["drift"] = {
+            net: {"max_over_n_lr": gp._max_drift(got, ref_w[net])
+                  / (TRAJ_PHASES * lr[net]),
+                  "share_beyond_0.1_lr": gp.drift_share(got, ref_w[net],
+                                                        0.1 * lr[net])}
+            for net, got in zip(("gen", "dis"), run.pop("weights"))}
+    moved = {f"{k}_off_first": float(np.abs(np.asarray(ref[f"{k}_loss"])
+                                            - ref[f"{k}_loss"][0]).max())
+             for k in ("dis", "gen")}
+    gan_ok = all(
+        gan[name]["gap"] <= TRAJ_TOL["gan_f32"]
+        and all(d["max_over_n_lr"] <= 2.0
+                and d["share_beyond_0.1_lr"] <= TRAJ_TOL["drift_share"]
+                for d in gan[name]["drift"].values())
+        for name in ("kernel_f32", "kernel_f32_step_recompute"))
+    res = {"mle": mle, "gan": gan, "gan_moved": moved, "tol": TRAJ_TOL,
+           "mle_ok": mle_ok, "gan_ok": gan_ok, "launches": total,
+           "seconds": time.perf_counter() - t_start}
+    phase("check.trajectory", **res)
+    if not mle_ok:
+        fail("the MLE trajectories leave their bands, or the control does "
+             "not")
+    if not gan_ok:
+        fail("the fp32 GAN kernel trajectories leave their band or the "
+             "drift rule")
     return total
 
 

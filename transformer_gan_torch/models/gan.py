@@ -202,6 +202,32 @@ class Draws:
         return self._uniform((bsz, 1, 1))
 
 
+class RecordedDraws(Draws):
+    """The random numbers of one GAN micro-batch with its gumbel noise from
+    recorded uniforms ``u`` [n_steps, bsz, V]: the sampling steps of the
+    micro-batch's chunks in order, what the JAX package's ``noise=``
+    injects on its rolling sampler. The discriminator's dropout draws and
+    the penalty weights come from ``generator``, a CPU generator (seed 0 by
+    default), so that every device sees the same numbers."""
+
+    def __init__(self, u, device=None, generator: torch.Generator | None = None):
+        super().__init__(generator or torch.Generator().manual_seed(0), device)
+        self.u = torch.as_tensor(u, dtype=torch.float32)
+        self.pos = 0
+
+    def _uniform(self, shape) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator,
+                          dtype=torch.float32).to(self.device)
+
+    def gumbel(self, chunk: int, n: int, bsz: int, V: int) -> torch.Tensor:
+        u = self.u[self.pos:self.pos + n]
+        if tuple(u.shape) != (n, bsz, V):
+            raise ValueError(f"recorded noise {tuple(self.u.shape)} has no "
+                             f"[{n}, {bsz}, {V}] block at step {self.pos}")
+        self.pos += n
+        return gumbel(u.to(self.device))
+
+
 # ---------------------------------------------------------------------------
 # Sampling
 # ---------------------------------------------------------------------------

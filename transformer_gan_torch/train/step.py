@@ -152,16 +152,17 @@ def make_mle_train_step(xcfg: xl.XLConfig, optimizer: FusedOptimizer,
     return train_step
 
 
-def make_eval_step(xcfg: xl.XLConfig, pad_id: int):
+def make_eval_step(xcfg: xl.XLConfig, pad_id: int, route: str | None = None):
     """(params, data, target, mems, status_vec=None) -> (nll_sum,
     token_count, new_mems): one evaluation window with same_length masking
-    and no dropout."""
+    and no dropout; ``route`` forces the attention route
+    (``xl.xl_forward``)."""
 
     @torch.no_grad()
     def eval_step(params, data, target, mems, status_vec=None):
         nll, new_mems = xl.forward_nll(params, xcfg, data, target, None, mems,
                                        status_vec=status_vec,
-                                       same_length=True)
+                                       same_length=True, route=route)
         mask = target != pad_id
         return torch.where(mask, nll, 0.0).sum(), mask.sum(), new_mems
 
