@@ -1,0 +1,23 @@
+"""Device idle time inside the program's ``train.data`` and ``train.h2d`` spans
+(the main thread in the train iterator, then in the batch's chunking and
+copies), as a share of the traced window (%): the window less the trace's
+busy intervals, laid against the spans' host intervals (``span_idle``). None
+where the program records no such span."""
+
+NAMES = ("train.data", "train.h2d")
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t.window_s <= 0:
+        return None
+    try:
+        from transformer_gan_torch.utils import spans
+    except ImportError:
+        return None
+    inside = [s for s in spans.recorded(t.lo, t.hi)
+              if s.name in NAMES and s.thread == spans.MAIN]
+    if not inside:
+        return None
+    from portbench.metrics import span_idle
+    return 100.0 * span_idle.idle_in(t, inside) / t.window_s

@@ -348,7 +348,8 @@ def test_remat_gradients_equal_without_remat_dropout_on(route, cache_kv):
 
 def test_profile_dir_writes_a_trace_on_the_cpu(tmp_path):
     """``TPU.profile_dir``: a 16-step CPU run writes a torch.profiler trace
-    of steps 10 to 15 (CPU activities) into the directory."""
+    of steps 10 to 15 (CPU activities) into the directory, the program's
+    named spans in it."""
     import json
 
     import yaml
@@ -376,3 +377,5 @@ def test_profile_dir_writes_a_trace_on_the_cpu(tmp_path):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    names = {e.get("name") for e in events}
+    assert {"train.data", "train.h2d", "train.step"} <= names

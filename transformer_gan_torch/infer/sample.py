@@ -24,6 +24,7 @@ import torch
 from ..models import xl
 from ..ops import generate as gen_ops
 from ..ops.decode_params import stack_decode_params
+from ..utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,10 +300,11 @@ def _fused_sample_loop(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
     M, dev = hids.shape[4], hids.device
     C = min(DECODE_CHUNK, length, M)   # a chunk must fit the ring
 
-    R = xl.precompute_r_heads(params, xcfg, M + 1, dev).reshape(
-        L, M + 1, hd).to(hids.dtype).contiguous()
-    stacked = stack_decode_params(
-        {k: v.to(dev) for k, v in params.items()}, xcfg)
+    with spans.span("gen.setup", device=hids.is_cuda):
+        R = xl.precompute_r_heads(params, xcfg, M + 1, dev).reshape(
+            L, M + 1, hd).to(hids.dtype).contiguous()
+        stacked = stack_decode_params(
+            {k: v.to(dev) for k, v in params.items()}, xcfg)
     count = int(mems.count)
     ids = first_token.to(torch.int32).reshape(bsz, 1)
     er = empty0.to(torch.int32).reshape(bsz, 1)
@@ -314,7 +316,8 @@ def _fused_sample_loop(params, xcfg: xl.XLConfig, scfg: SamplingConfig,
         ids, er, toks, staged = gen_ops.fused_generate_chunk(
             stacked, xcfg, scfg, hids, R, ids, er,
             g_all[s:s + n].contiguous(), count, n, same_length=same_length)
-        hids = torch.cat([hids[..., n:, :], staged], dim=4)
+        with spans.span("gen.ring", device=hids.is_cuda):
+            hids = torch.cat([hids[..., n:, :], staged], dim=4)
         count = min(count + n, M)
         pieces.append(toks)
     return torch.cat(pieces), hids, count

@@ -62,6 +62,7 @@ from ..ops import chain_bwd as chain_ops
 from ..ops import decode as dec_ops
 from ..ops.decode_params import stack_decode_params
 from ..train.losses import get_losses, gradient_penalty
+from ..utils import spans
 from . import bert as bert_mod
 from . import discriminator as disc_mod
 from . import xl
@@ -427,8 +428,10 @@ class _ChunkSTFullchain(torch.autograd.Function):
         dst = dst.float()
         with torch.enable_grad():
             res = impl in ("auto", "kernel")
-            out = xl.decode_recompute_window(params, xcfg, inputs, k_mem, v_mem,
-                                             ctx.count, collect_residuals=res)
+            with spans.span("gan.recompute", device=inputs.is_cuda):
+                out = xl.decode_recompute_window(params, xcfg, inputs, k_mem,
+                                                 v_mem, ctx.count,
+                                                 collect_residuals=res)
             logits, kf, vf = out[0], torch.stack(out[1]), torch.stack(out[2])
             args = (params, xcfg, kf, vf, inputs, dst, y, ctx.count,
                     ctx.temperature)
@@ -471,15 +474,17 @@ def _sample_fake_chunks_recompute(gen_params, xcfg: xl.XLConfig,
     for c, g in enumerate(noise):
         hard = hard_chunks[c][0][ctx:] if c == 0 else hard_chunks[c][0]
         inputs = torch.cat([prev_hard[None], hard[:-1]])
-        if gcfg.truncate_backprop:
-            st, _, kf, vf, _ = _window_st(gen_params, xcfg, inputs, k_mem, v_mem,
-                                          count, g, hard, temperature)
-            kf, vf = torch.stack(kf), torch.stack(vf)
-        else:
-            st, kf, vf = _ChunkSTFullchain.apply(
-                xcfg, chain_impl, names, (operands[0], operands[2]), inputs,
-                k_mem, v_mem, count, g, hard, float(temperature),
-                *gen_params.values())
+        with spans.span("gan.recompute", device=data.is_cuda):
+            if gcfg.truncate_backprop:
+                st, _, kf, vf, _ = _window_st(gen_params, xcfg, inputs, k_mem,
+                                              v_mem, count, g, hard,
+                                              temperature)
+                kf, vf = torch.stack(kf), torch.stack(vf)
+            else:
+                st, kf, vf = _ChunkSTFullchain.apply(
+                    xcfg, chain_impl, names, (operands[0], operands[2]),
+                    inputs, k_mem, v_mem, count, g, hard, float(temperature),
+                    *gen_params.values())
         count = min(count + hard.shape[0], M)
         k_mem, v_mem = kf[..., -M:, :], vf[..., -M:, :]
         if c == 0:
@@ -626,13 +631,14 @@ def gan_losses_for_batch(gen_params, dis_params, dis_cfg, xcfg, gcfg: GanConfig,
                 u = (lambda shape, c=c: draws.dropout_u(c, shape))
             else:
                 u = draws.dropout_u(c, disc_mod.dropout_shape(dis_cfg, 2 * bsz))
-        d_real, d_fake = score_chunk(dis_params, dis_cfg, gcfg, real_ids, fake,
-                                     train=train_dis, dropout_u=u)
-        if gcfg.ppo and not train_dis:
-            if update_P0:
-                P0 = compute_P0(disD_params, disD_cfg, gcfg, fake)
-            d_fake = ppo_surrogate(disD_params, disD_cfg, gcfg, fake, d_fake,
-                                   P0)
+        with spans.span("gan.critic", device=data.is_cuda):
+            d_real, d_fake = score_chunk(dis_params, dis_cfg, gcfg, real_ids,
+                                         fake, train=train_dis, dropout_u=u)
+            if gcfg.ppo and not train_dis:
+                if update_P0:
+                    P0 = compute_P0(disD_params, disD_cfg, gcfg, fake)
+                d_fake = ppo_surrogate(disD_params, disD_cfg, gcfg, fake,
+                                       d_fake, P0)
         g, d = get_losses(d_real, d_fake, gcfg.loss_type)
         gen_loss, dis_loss = gen_loss + g, dis_loss + d
         if train_dis and gcfg.has_gp:

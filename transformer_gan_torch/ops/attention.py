@@ -49,6 +49,7 @@ import torch
 
 from .. import _native
 from ..models.attention import build_attn_mask, rel_shift
+from ..utils import spans
 
 NEG = -0.7 * torch.finfo(torch.float32).max
 
@@ -154,6 +155,7 @@ def _bd_index(q: int, klen: int, device) -> torch.Tensor:
             + torch.arange(klen, device=device)[None, :])
 
 
+@spans.spanned("k1f")
 def xl_attn_fwd_v2(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, count, reset,
                    same_length: bool, *, seed: int = 0, rate: float = 0.0):
     """qrw, qrr: [H, B, q, dh] (q + r_w_bias, q + r_r_bias, pre-scaled by
@@ -252,6 +254,7 @@ def _launch_bwd(name: str, dev, **fields) -> None:
     _native.count_launch(name)
 
 
+@spans.spanned("k1b")
 def xl_attn_bwd_v2(qrw, qrr, k_mem, v_mem, k_cur, v_cur, rk, m, l, o, do,
                    count, reset, same_length: bool, *, seed: int = 0,
                    rate: float = 0.0):
@@ -478,6 +481,7 @@ def combine_splits_plain(o_part, m_part, l_part, rate: float = 0.0):
     return o, m, l
 
 
+@spans.spanned("k2f")
 def xl_attn_fwd_v1(q, k, v, bd, count, reset, scale: float,
                    same_length: bool, *, seed: int = 0, rate: float = 0.0):
     """q: [BH, qlen, dh] (q + r_w_bias); k, v: [BH, klen, dh] (memory then
@@ -570,6 +574,7 @@ def _fwd_split(s, v, mask, keep, rate, splits):
                                 rate=rate)
 
 
+@spans.spanned("k2b")
 def xl_attn_bwd_v1(q, k, v, bd, m, l, o, do, count, reset, scale: float,
                    same_length: bool, *, seed: int = 0, rate: float = 0.0):
     """K2b: gradients of :func:`xl_attn_fwd_v1`'s ``o`` given ``do``

@@ -42,6 +42,7 @@ import torch
 
 from .. import _native
 from ..models import xl
+from ..utils import spans
 from .decode_params import K_ALIGN, N_ALIGN, stack_decode_params
 from .generate import r_heads_major
 
@@ -247,6 +248,7 @@ def _launch(name: str, params, cfg, kf, vf, S, Y, count: int, temperature,
     return Q
 
 
+@spans.spanned("k6")
 def chain_bwd_q_res(params, cfg, kf, vf, inputs, S, Y, count: int,
                     temperature, res, stacked=None, R=None) -> torch.Tensor:
     """K6: the reverse chain on the window's residuals ``res`` (x, z1, z2
@@ -262,6 +264,7 @@ def chain_bwd_q_res(params, cfg, kf, vf, inputs, S, Y, count: int,
                    temperature, res=res, stacked=stacked, R=R)
 
 
+@spans.spanned("k7")
 def chain_bwd_q(params, cfg, kf, vf, inputs, S, Y, count: int, temperature,
                 stacked=None, R=None) -> torch.Tensor:
     """K7: the reverse chain recomputing each token's forward from its

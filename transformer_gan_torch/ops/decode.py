@@ -32,6 +32,7 @@ import torch
 
 from .. import _native
 from ..models.attention import layer_norm
+from ..utils import spans
 from .generate import (_STACKED, _STACKED_F32, GenArgs, _layer_keys,
                        chain_lib, chain_tc_operands, decode_attention_plain)
 
@@ -115,6 +116,7 @@ def _launch(entry: str, stacked, cfg, kv, R, staged, ids, g, count: int,
     return ids_io, onehot
 
 
+@spans.spanned("k4")
 def fused_decode_chunk(stacked, cfg, kv, R, ids, g, count: int, n: int):
     """K4: sample ``n`` tokens of a chunk.
 
@@ -132,6 +134,7 @@ def fused_decode_chunk(stacked, cfg, kv, R, ids, g, count: int, n: int):
     return ids_io.view(B, 1), onehot, staged
 
 
+@spans.spanned("k5")
 def fused_decode_step(stacked, cfg, kv, R, staged, ids, g, t: int, count: int):
     """K5: the token at chunk step ``t``. staged: [L, 2, H, B, C, dh], rows
     0 .. t-1 the chunk's earlier tokens; row ``t`` is written in place.

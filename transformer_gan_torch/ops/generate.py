@@ -30,6 +30,7 @@ import torch
 
 from .. import _native
 from ..models.attention import layer_norm
+from ..utils import spans
 from .attention import combine_splits_plain
 from .decode_params import K_ALIGN, N_ALIGN
 
@@ -219,6 +220,7 @@ _STACKED = {"q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2", "fb2", "rwb",
 _STACKED_F32 = {"ln_as", "ln_ab", "ln_fs", "ln_fb"}
 
 
+@spans.spanned("k3")
 def fused_generate_chunk(stacked, cfg, scfg, kv, R, ids, er, g, count,
                          n: int, same_length: bool = True,
                          return_logits: bool = False):

@@ -32,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from . import _native
 from . import kernel_check as kc
 from .ops import attention as attn_ops
+from .utils import spans
 
 TRAIN_MEM = 1024  # the MLE step's memory (experiment_baseline.yml)
 
@@ -85,9 +86,11 @@ def kernel_rows(fn, n: int = 20) -> list:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    # the spans' ranges show on the device too, covering their kernels
     return [(e.key, e.count / n, e.device_time_total / e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count > 0]
+            if e.device_type == DeviceType.CUDA and e.count > 0
+            and e.key not in spans.NAMES]
 
 
 def cases(B: int = 128) -> dict:

@@ -55,7 +55,7 @@ from torch.profiler import ProfilerActivity, profile
 from . import _native
 from . import kernel_check as kc
 from .profile_attention import build_variant
-from .profile_generate import _NOT_KERNELS, _busy_ms, _device_rows
+from .profile_generate import _busy_ms, _device_rows, _is_kernel
 
 B, M = 64, kc.GAN_MEM
 _FLAG = "constexpr bool kLnBwdKernels = "
@@ -79,8 +79,7 @@ def profile_call(variant: str, chain, top: int = 8) -> dict:
         end.record()
         torch.cuda.synchronize()
     call_ms = start.elapsed_time(end)
-    kernels = [r for r in _device_rows(prof)
-               if not any(k in r[0] for k in _NOT_KERNELS)]
+    kernels = [r for r in _device_rows(prof) if _is_kernel(r[0])]
     launches = sum(r[1] for r in kernels)
     busy, span = _busy_ms(prof)
     wall = kc.time_ms(call, iters=3, warmup=1)

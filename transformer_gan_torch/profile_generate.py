@@ -38,6 +38,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import kernel_check as kc
+from .utils import spans
 
 # host-side ops and copies that the trace also lists with a device time
 _NOT_KERNELS = ("aten::", "Activity Buffer", "Memcpy", "Memset")
@@ -52,11 +53,21 @@ ABLATIONS = {
 }
 
 
+def _is_kernel(name: str) -> bool:
+    """Whether a device row or event of the trace is a kernel: not a host
+    op, copy or profiler buffer, and not the device-side copy of a span's
+    range (``utils/spans.NAMES``), which covers the kernels it encloses."""
+    return name not in spans.NAMES and not any(k in name for k in _NOT_KERNELS)
+
+
 def _device_rows(prof) -> list:
+    """(name, count, device ms) of the trace's device-side rows: a host-side
+    row (an op, a runtime call) may carry its children's device time too."""
     rows = []
     for e in prof.key_averages():
         dt = getattr(e, "device_time_total", 0)
-        if dt > 0 and e.count > 0:
+        if (dt > 0 and e.count > 0
+                and e.device_type == torch.autograd.DeviceType.CUDA):
             rows.append((e.key, e.count, dt / 1000.0))
     return sorted(rows, key=lambda r: -r[2])
 
@@ -69,7 +80,7 @@ def _busy_ms(prof) -> tuple[float, float]:
         (e.start_ns(), e.start_ns() + e.duration_ns())
         for e in prof.profiler.kineto_results.events()
         if e.device_type() == torch.autograd.DeviceType.CUDA
-        and not any(k in e.name() for k in _NOT_KERNELS))
+        and _is_kernel(e.name()))
     busy, end = 0, None
     for a, b in spans:
         if end is None or a > end:
@@ -107,7 +118,7 @@ def profile_chunk(kernel: str, B: int, M: int, top: int = 12) -> dict:
         torch.cuda.synchronize()
     call_ms = start.elapsed_time(end)
     rows = _device_rows(prof)
-    kernels = [r for r in rows if not any(k in r[0] for k in _NOT_KERNELS)]
+    kernels = [r for r in rows if _is_kernel(r[0])]
     total = sum(r[2] for r in kernels)
     launches = sum(r[1] for r in kernels)
     busy, span = _busy_ms(prof)

@@ -31,6 +31,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from . import kernel_check as kc
+from .utils import spans
 
 
 def profile_call(name: str, fn, wall_ms, top: int = 14,
@@ -43,10 +44,12 @@ def profile_call(name: str, fn, wall_ms, top: int = 14,
                              ProfilerActivity.CUDA]) as prof:
         fn()
     # device-side events only (kernels, copies, memsets): the host ops and
-    # autograd nodes above them report their children's device time again
+    # autograd nodes above them, and the device copies of the spans' ranges,
+    # report their children's device time again
     kernels = sorted(((e.key, e.count, e.device_time_total / 1000.0)
                       for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and e.count > 0),
+                      if e.device_type == DeviceType.CUDA and e.count > 0
+                      and e.key not in spans.NAMES),
                      key=lambda r: -r[2])
     total = sum(r[2] for r in kernels)
     wall = wall_ms()

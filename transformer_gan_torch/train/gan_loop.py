@@ -52,6 +52,7 @@ from ..models import discriminator as disc_mod
 from ..models import gan as gan_mod
 from ..parallel import mesh as pmesh
 from ..parallel import sharding as psh
+from ..utils import spans
 from . import checkpoint as ckpt
 from . import optim as topt
 from . import step as tstep
@@ -150,6 +151,8 @@ class GanPhases:
         self._dis_stream = trainer.dis_iter()
         self.log_gen_loss = self.log_dis_loss = 0.0
         self.log_gen_num = self.log_dis_num = 0
+        # (phase, step, span) of the phases whose device time is not logged
+        self._unread: list = []
         self.broadcast()
 
     # ------------------------------------------------------------------
@@ -236,6 +239,13 @@ class GanPhases:
         if self.dis_opt_state is None:
             return None
         t0 = time.perf_counter()
+        with spans.span("gan.dis", device=self.device.type == "cuda") as sp:
+            grad = self._dis_updates(train_step_num)
+        _log_phase("dis_phase", train_step_num, time.perf_counter() - t0, sp,
+                   self._unread)
+        return grad
+
+    def _dis_updates(self, train_step_num: int) -> torch.Tensor:
         gcfg = self.gcfg
         self.dis_opt_state = topt.set_lr_multiplier(
             self.dis_opt_state, float(self.dis_sched(train_step_num)))
@@ -264,10 +274,9 @@ class GanPhases:
             self.log_dis_loss = (self.log_dis_loss + dsum * gcfg.dis_loss_factor
                                  / gcfg.sample_chunks_mem)
             self.log_dis_num += gcfg.batch_chunk
-        logging.info("dis_phase step %d: %.2fs", train_step_num,
-                     time.perf_counter() - t0)
         return grad
 
+    @spans.spanned("gan.classifier")
     def classifier_phase(self, data_c: torch.Tensor) -> torch.Tensor:
         """PPO: one update of dis_D over the micro-batches of ``data_c``
         (BCE, real -> 1, fake -> 0, on fakes of the detached generator).
@@ -295,6 +304,13 @@ class GanPhases:
         ``update_D0``. Returns the generator's flat gradient (before
         clipping)."""
         t0 = time.perf_counter()
+        with spans.span("gan.gen", device=self.device.type == "cuda") as sp:
+            grad = self._gen_update(train_step_num)
+        _log_phase("gen_phase", train_step_num, time.perf_counter() - t0, sp,
+                   self._unread)
+        return grad
+
+    def _gen_update(self, train_step_num: int) -> torch.Tensor:
         gcfg = self.gcfg
         state = self.trainer.state
         self.gen_opt_state = topt.set_lr_multiplier(
@@ -327,8 +343,6 @@ class GanPhases:
         self.log_gen_loss = (self.log_gen_loss + gsum * gcfg.gen_loss_factor
                              / gcfg.sample_chunks_mem)
         self.log_gen_num += gcfg.batch_chunk
-        logging.info("gen_phase step %d: %.2fs", train_step_num,
-                     time.perf_counter() - t0)
         return grad
 
     # ------------------------------------------------------------------
@@ -374,6 +388,21 @@ class GanPhases:
             self.gen_opt_state = _to(payload["gen_opt_state"], self.device)
         if "dis_opt_state" in payload:
             self.dis_opt_state = _to(payload["dis_opt_state"], self.device)
+
+
+def _log_phase(phase: str, step: int, dispatched: float, sp,
+               unread: list) -> None:
+    """The phase's line: the host's seconds to enqueue it. While spans record
+    on the card the phase's span joins ``unread``, and each span there whose
+    end event the device has passed gets a line of its device seconds; none
+    is waited for."""
+    logging.info("%s step %d: dispatched in %.2fs", phase, step, dispatched)
+    if sp is not None and sp.events is not None:
+        unread.append((phase, step, sp))
+    while unread and unread[0][2].events[1].query():
+        name, n, done = unread.pop(0)
+        logging.info("%s step %d: device %.2fs", name, n,
+                     spans.device_seconds([done]))
 
 
 def _to(state: topt.FusedOptState, device) -> topt.FusedOptState:

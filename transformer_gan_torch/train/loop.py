@@ -57,6 +57,7 @@ from ..infer.sample import generate_tokens_gumbel, gumbel_draws
 from ..models import xl
 from ..parallel import mesh as pmesh
 from ..parallel import sharding as psh
+from ..utils import spans
 from ..utils.logging import logging_config
 from . import checkpoint as ckpt
 from . import optim as topt
@@ -275,6 +276,7 @@ class Trainer:
         return int(tok), float(nll), self._generation_metrics(mode)
 
     @torch.no_grad()
+    @spans.spanned("gen.call")
     def _generate_tokens(self, num_samples: int, batch_size: int,
                          seq_len: int) -> np.ndarray:
         """[num_samples, seq_len] gumbel-argmax pieces from <S> (token 0) on
@@ -292,12 +294,16 @@ class Trainer:
         params = {k: v.detach() for k, v in self.state.params().items()}
         out = []
         for _ in range(num_samples // wave):
-            mems = xl.init_mems(self.xcfg, seq_len, wave, device=dev)
-            first = torch.zeros((wave,), dtype=torch.int64, device=dev)
-            g = gumbel_draws(seq_len - 1, wave, self.xcfg.n_token, gen, dev)
+            with spans.span("gen.setup", device=dev.type == "cuda"):
+                mems = xl.init_mems(self.xcfg, seq_len, wave, device=dev)
+                first = torch.zeros((wave,), dtype=torch.int64, device=dev)
+                g = gumbel_draws(seq_len - 1, wave, self.xcfg.n_token, gen,
+                                 dev)
             out.append(generate_tokens_gumbel(params, self.xcfg, seq_len,
                                               first, mems, g).T)
-        return torch.cat(out).cpu().numpy()
+        with spans.span("gen.readback"):
+            tokens = torch.cat(out).cpu()
+        return tokens.numpy()
 
     def _generation_metrics(self, mode: str) -> list:
         """BLEU (mode "eval": against the validation pieces, else the test
@@ -359,25 +365,35 @@ class Trainer:
         log_start = time.time()
         profiler = None
         logging.info("Start training")
-        for data, target, reset_mems, _, status_vec in self.train_iter():
+        batches = self.train_iter()
+        while True:
+            with spans.span("train.data"):
+                item = next(batches, None)
+            if item is None:
+                break
+            data, target, reset_mems, _, status_vec = item
             if self.gan is not None:
                 # temperature annealing: the generator's is 1 / beta
                 self.gan.temperature = 1.0 / get_fixed_temperature(
                     cfg.DISCRIMINATOR.beta_max, self.train_step_num,
                     cfg.TRAIN.max_step, cfg.DISCRIMINATOR.adapt)
-            batch = (torch.from_numpy(tstep.chunk_batch(data, bc)).to(dev),
-                     torch.from_numpy(tstep.chunk_batch(target, bc)).to(dev),
-                     torch.from_numpy(tstep.chunk_rows(reset_mems, bc)).to(dev))
-            if status_vec is not None:
-                batch += (torch.from_numpy(
-                    tstep.chunk_status(status_vec, bc)).to(dev),)
-            self.state, metrics = self.train_step_fn(self.state, *batch)
+            with spans.span("train.h2d"):
+                batch = (
+                    torch.from_numpy(tstep.chunk_batch(data, bc)).to(dev),
+                    torch.from_numpy(tstep.chunk_batch(target, bc)).to(dev),
+                    torch.from_numpy(tstep.chunk_rows(reset_mems, bc)).to(dev))
+                if status_vec is not None:
+                    batch += (torch.from_numpy(
+                        tstep.chunk_status(status_vec, bc)).to(dev),)
+            with spans.span("train.step"):
+                self.state, metrics = self.train_step_fn(self.state, *batch)
             d = cfg.DISCRIMINATOR
             if self.gan is not None and self.train_step_num > d.start_iter:
-                if self.train_step_num % d.dis_loss_freq == 0:
-                    self.gan.dis_phase(self.train_step_num)
-                if self.train_step_num % d.gen_loss_freq == 0:
-                    self.gan.gen_phase(self.train_step_num)
+                with spans.span("train.gan"):
+                    if self.train_step_num % d.dis_loss_freq == 0:
+                        self.gan.dis_phase(self.train_step_num)
+                    if self.train_step_num % d.gen_loss_freq == 0:
+                        self.gan.gen_phase(self.train_step_num)
             self.train_step_num += 1
             if cfg.TPU.profile_dir and self.train_step_num == PROFILE_START:
                 profiler = self._start_profile()
@@ -388,9 +404,11 @@ class Trainer:
 
             if self.train_step_num % log_interval == 0:
                 # waits for the device; sums over the ranks
-                loss_w, tokens, gnorm = pmesh.host_allreduce_sum(
-                    [float(log_acc["loss_weighted"]),
-                     float(log_acc["tokens"]), float(log_acc["grad_norm"])])
+                with spans.span("train.log"):
+                    loss_w, tokens, gnorm = pmesh.host_allreduce_sum(
+                        [float(log_acc["loss_weighted"]),
+                         float(log_acc["tokens"]),
+                         float(log_acc["grad_norm"])])
                 log_acc = None
                 nll = loss_w / max(tokens, 1.0)
                 gan_stats = (self.gan.pop_log_stats() if self.gan is not None
@@ -408,7 +426,8 @@ class Trainer:
                 log_start = time.time()
 
             if self.train_step_num % eval_interval == 0:
-                self._eval_and_checkpoint()
+                with spans.span("train.eval"):
+                    self._eval_and_checkpoint()
 
             if self.train_step_num >= cfg.TRAIN.max_step:
                 logging.info("-" * 100)
