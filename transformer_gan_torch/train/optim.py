@@ -66,9 +66,13 @@ class FlatLayout:
 
     def unflatten(self, flat: torch.Tensor) -> dict:
         """Views of ``flat`` under the parameter names (autograd flows from
-        each view back to ``flat``)."""
-        return {n: flat[o:o + math.prod(s)].view(s)
-                for n, s, o in zip(self.names, self.shapes, self.offsets)}
+        each view back to ``flat``). One split of ``flat``, not a slice a
+        leaf: the backward gathers the leaves' gradients into the [P]
+        gradient with one ``cat``, where a slice a leaf would fill a [P]
+        buffer with zeros for each leaf and autograd would add them up."""
+        pieces = flat.split([math.prod(s) for s in self.shapes])
+        return {n: t.view(s)
+                for n, s, t in zip(self.names, self.shapes, pieces)}
 
     def segment_ids(self, device=None) -> torch.Tensor:
         sizes = [math.prod(s) for s in self.shapes]
