@@ -19,7 +19,13 @@ Phases, one line each; any failure exits non-zero:
    gumbel sampler (K4, K5) and its reverse chain (K6, K7) at M 64; bf16 K3,
    K4 and K5 run the split-key, lane-tiled decode chain
    (csrc/decode_chain_tc.cuh) and are held against the plain versions with
-   the kernel's key splits and without (the phase prints the splits); bf16
+   the kernel's key splits and without (the phase prints the splits and
+   the route: lane groups at B >= 8 where the keys are split and the
+   grouped grid fills the card); bf16 K3 at the metrics eval's wave (B 32,
+   M 2048, counts 0 to 2016) on the lane-grouped decode attention, each
+   call counted in generate_chunk_grouped, and K4 / K5 at the GAN's
+   shapes, which stay off it, and at B 8, M 1024, which takes it, each
+   launch counted (kernels.generate_grouped, with its seconds); bf16
    K6 and K7 run the reverse chain of csrc/chain_bwd_tc.cu on the same
    GEMV engine (post-norm, and one pre-norm case);
 4. main path, generation: ``transformer_gan_torch.cli.generate.main`` on
@@ -64,7 +70,8 @@ Phases, one line each; any failure exits non-zero:
    K1f / K1b, the on-card references, are timed against their fp32 plain
    versions. The decode chain: the bf16 chain's K3 (B 1 and 8, M 4146),
    K4 (B 64, M 64) and K5 (step 5) beside the fp32 chain, the on-card
-   reference, at the same shapes; K3's streaming floor beside its bound;
+   reference, at the same shapes; K3 at B 1 and 8 on both routes of the
+   decode attention (ms_by_route); K3's streaming floor beside its bound;
    one K3 and one K4 call traced (torch.profiler) for the kernel launches
    a token and the device-busy share (the union of the kernels' intervals
    over their span and over the traced call). The reverse chain: bf16 K6
@@ -244,15 +251,23 @@ def main() -> None:
                     chunks=[{k: c[k] for k in c if k != "count"}
                             for c in res["chunks"]])
     from transformer_gan_torch.ops import generate as gen_ops
-    decode_points = ((1, kc.MEM_LEN), (8, kc.MEM_LEN), (64, kc.GAN_MEM))
+    decode_points = ((1, kc.MEM_LEN), (8, kc.MEM_LEN), (32, METRICS_SEQ),
+                     (B_GAN, kc.GAN_MEM), (32, 128), (8, 128))
+    routes = {f"B {B}, M {M}": gen_ops.chain_route(10, B, M + 32, dev)
+              for B, M in decode_points}
     phase("kernels.decode_chain",
           design={str(d).split(".")[-1]: gen_ops.chain_design(d)
                   for d in (torch.float32, torch.bfloat16)},
-          key_splits={f"B {B}, M {M}": gen_ops.chain_key_splits(
-              10, B, M + 32, dev) for B, M in decode_points},
-          launches_per_token_by_design={f"B {B}, M {M}": kc.chain_launches_per_token(
-              6, gen_ops.chain_key_splits(10, B, M + 32, dev))
-              for B, M in decode_points})
+          lane_group_and_key_splits=routes,
+          launches_per_token_by_design={
+              k: kc.chain_launches_per_token(6, S, G)
+              for k, (G, S) in routes.items()})
+    # K4's GAN shapes keep split_attn_kernel; evalgen's takes lane groups
+    if (routes[f"B {B_GAN}, M {kc.GAN_MEM}"][0] or routes["B 32, M 128"][0]
+            or routes["B 8, M 128"][0]
+            or not routes[f"B 32, M {METRICS_SEQ}"][0]):
+        fail(f"decode attention routes: {routes}")
+    grouped_errs = check_generate_grouped(kc)
     dec_errs = check_decode(kc)
     from transformer_gan_torch.ops import chain_bwd as chain_ops
     phase("kernels.reverse_chain",
@@ -623,13 +638,14 @@ def measure(kc, card: str) -> dict:
                                                  kc.MEM_LEN))
         # worked out, not measured: the phase line carries them, the
         # kernels line only what this run measured (and the bound)
-        splits = gen_ops.chain_key_splits(10, B, kc.MEM_LEN + 32, "cuda:0")
+        group, splits = gen_ops.chain_route(10, B, kc.MEM_LEN + 32, "cuda:0")
         line.update(bound_ms=bound, bound_by=by,
                     stream_floor_ms=kc.sampler_stream_bytes(
                         32, B, kc.MEM_LEN, kc.MEM_LEN) / kc.PEAK_BYTES * 1e3,
-                    key_splits=splits,
+                    key_splits=splits, lane_group=group,
                     launches_per_token_by_design=kc.chain_launches_per_token(
-                        6, splits))
+                        6, splits, group),
+                    ms_by_route=kc.time_decode_routes(B))
         phase("numbers.generate", **line)
         num = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": by,
@@ -1499,6 +1515,53 @@ def check_decode(kc) -> dict:
                         chunks=[{k: c[k] for k in c
                                  if k != "first_divergence"}
                                 for c in res["chunks"]])
+    return errs
+
+
+def check_generate_grouped(kc) -> dict:
+    """K3's bf16 chain on the lane-grouped decode attention at the metrics
+    eval's wave (gumbel-argmax, same_length off, B 32, M 2048): counts 0,
+    256, 1024 and 2016, a 32-token chunk then a 7-token one, against the
+    plain version with the route's splits and the unsplit one (the first
+    step's logits within LOGIT_ULPS_BF16), each call counted once in
+    generate_chunk_grouped; then K4 and K5 at the GAN's shapes (B 64 at
+    M 64, B 32 at M 128, B 8 at M 128), which keep split_attn_kernel (no
+    decode_chunk_grouped or decode_step_grouped count), and at B 8, M 1024,
+    where they take lane groups (check_decode holds each launch's count
+    against the route)."""
+    from transformer_gan_torch import _native
+    t0 = time.perf_counter()
+    errs, cases = 0.0, []
+    for count in (0, 256, 1024, METRICS_SEQ - 32):
+        res = kc.check_generate("bfloat16", 32, count, chunks=(32, 7),
+                                M=METRICS_SEQ, technique="gumbel",
+                                same_length=False)
+        cases.append({k: res[k] for k in ("count", "ok", "max_abs_err")}
+                     | {"chunks": [{k: c[k] for k in (
+                         "n", "splits", "lane_group", "grouped_calls",
+                         "logit0_ulps", "logit0_ulps_vs_unsplit",
+                         "ids_equal")} for c in res["chunks"]]})
+        if not res["ok"]:
+            fail(f"K3 disagrees on the lane-grouped route: {res}")
+        errs = max(errs, res["max_abs_err"])
+    names = ("decode_chunk_grouped", "decode_step_grouped")
+    gan = []
+    for B, M in ((B_GAN, kc.GAN_MEM), (32, 128), (8, 128), (8, 1024)):
+        counts0 = [_native.LAUNCHES[k] for k in names]
+        for step in (False, True):
+            res = kc.check_decode("bfloat16", B, M, M=M, step=step,
+                                  chunks=(32,))
+            if not res["ok"]:
+                fail(f"GAN sampler kernel disagrees: {res}")
+        grouped = [_native.LAUNCHES[k] - c for k, c in zip(names, counts0)]
+        gan.append({"B": B, "M": M, "lane_group": res["chunks"][0][
+            "lane_group"], "grouped_calls": dict(zip(names, grouped))})
+        if (B, M) != (8, 1024) and any(grouped):
+            fail(f"K4 / K5 took lane groups at the GAN's shape: {gan[-1]}")
+    torch.cuda.empty_cache()
+    phase("kernels.generate_grouped", B=32, M=METRICS_SEQ, technique="gumbel",
+          same_length=False, cases=cases, max_abs_err=errs, gan=gan,
+          seconds=round(time.perf_counter() - t0, 1))
     return errs
 
 

@@ -112,6 +112,88 @@ def test_decode_key_splits(B, n_keys, want):
         assert max(n for _, n in tgen.split_bounds(n_keys, S)) <= tgen.KEY_TILE
 
 
+# The route of the bf16 decode attention, from H, B, the keys and the SMs
+# (132: the H100). evalgen: H 10, B 32, M 2048, C 32; K4's GAN shapes: B 64
+# at M 64, B 32 at M 128; the CLI's K3: B 1 and B 8 at M 4146.
+ROUTES = [
+    (32, 2048 + 32, (8, 6)),    # evalgen: 4 groups x 6 splits x 10 heads
+    (32, 2048 + 7, (8, 6)),     # its remainder chunk
+    (16, 2048 + 32, (8, 13)),   # the metrics' narrower waves
+    (8, 2048 + 32, (8, 26)),
+    (64, 64 + 32, (0, 1)),      # K4, B 64, M 64: unsplit
+    (32, 128 + 32, (0, 1)),     # K4, B 32, M 128: unsplit
+    (8, 128 + 32, (0, 2)),      # K4 / K5 at B 8, M 128: split, but a grouped
+                                # grid of 20 blocks, under a block an SM
+    (8, 64 + 32, (0, 1)),       # K4 at B 8, M 64: unsplit
+    (8, 1024 + 32, (8, 16)),    # B 8, M 1024: 160 grouped blocks
+    (8, 4146 + 32, (8, 26)),    # the CLI at B 8: lane groups
+    (1, 4146 + 32, (0, 27)),    # the CLI at B 1: fewer lanes than a group
+    (7, 4146 + 32, (0, 17)),
+    (12, 4146 + 32, (8, 13)),   # a ragged last group
+    (32, 33000, (0, 64)),       # past GROUP_MAX_KEYS x MAX_DECODE_SPLITS
+]
+
+
+@pytest.mark.parametrize("B,n_keys,want", ROUTES)
+def test_decode_route(B, n_keys, want):
+    assert tgen.decode_route(10, B, n_keys, 132) == want
+    if want[0] == 0:
+        assert want[1] == tgen.decode_key_splits(10, B, n_keys, 132)
+
+
+@pytest.mark.parametrize("B,n_keys,want",
+                         [r for r in ROUTES if r[2][0]])
+def test_grouped_split_bounds(B, n_keys, want):
+    """The grouped route's splits: each at most GROUP_MAX_KEYS keys (its
+    scores in shared memory) and at least MIN_SPLIT_KEYS at full length,
+    the tensor_split ranges, and the (h, group, split) grid within one wave
+    of GROUP_BLOCKS_PER_SM blocks a multiprocessor."""
+    S = tgen.grouped_key_splits(10, B, n_keys, 132)
+    assert S == want[1] <= tgen.MAX_DECODE_SPLITS
+    sizes = [n for _, n in tgen.split_bounds(n_keys, S)]
+    assert sum(sizes) == n_keys and max(sizes) - min(sizes) <= 1
+    assert tgen.MIN_SPLIT_KEYS <= max(sizes) <= tgen.GROUP_MAX_KEYS
+    assert 10 * -(-B // tgen.LANE_GROUP) * S <= tgen.GROUP_BLOCKS_PER_SM * 132
+
+
+def test_launches_per_token_by_route():
+    from transformer_gan_torch import kernel_check as kc
+    assert kc.chain_launches_per_token(6, 6, tgen.LANE_GROUP) == 32
+    assert kc.chain_launches_per_token(6, 27) == 38
+    assert kc.chain_launches_per_token(6, 1) == 32
+
+
+@pytest.mark.parametrize("count,n", [(0, 7), (40, 32), (64, 32)])
+def test_generate_chunk_plain_with_route_splits_within_bf16_rule(count, n):
+    """The plain version with the evalgen route's splits (6; the kernel's
+    rounding) against the unsplit plain version, bf16 at tiny widths,
+    B 8, M 64: the first step's logits within kernel_check's
+    LOGIT_ULPS_BF16 ulps of max|logit|, layer 0's staged K/V of step 0
+    (no attention before it) equal."""
+    from transformer_gan_torch import kernel_check as kc
+    cfg = txl.XLConfig(compute_dtype="bfloat16", cache_kv=True, **BASE)
+    params = txl.init_xl_params(cfg, seed=5, base_init=("normal", 0.1))
+    st = tparams.stack_decode_params(params, cfg)
+    B, M = 8, 64
+    gen = torch.Generator().manual_seed(count + n)
+    kv = (torch.randn((L, 2, H, B, M, DH), generator=gen) * 0.5).to(
+        torch.bfloat16)
+    R = txl.precompute_r_heads(params, cfg, M + 1).reshape(
+        L, M + 1, HD).to(torch.bfloat16).contiguous()
+    ids = torch.randint(2, V, (B, 1), generator=gen, dtype=torch.int32)
+    er = torch.zeros((B, 1), dtype=torch.int32)
+    g = tsample.gumbel_noise((n, B, V), gen, "cpu")
+    S = tgen.decode_route(10, 32, 2048 + 32, 132)[1]
+    outs = [tgen.fused_generate_chunk_plain(
+        st, cfg, tsample.GUMBEL_ARGMAX, kv, R, ids, er, g, count, n,
+        same_length=False, return_logits=True, splits=splits)
+        for splits in (None, S)]
+    ref, got = outs[0][4][0].float(), outs[1][4][0].float()
+    ulp = kc.bf16_ulp(float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= kc.LOGIT_ULPS_BF16 * ulp
+    assert torch.equal(outs[0][3][0, ..., 0, :], outs[1][3][0, ..., 0, :])
+
+
 # ---------------------------------------------------------------------------
 # The chunk samplers' plain versions with splits against the JAX package
 # ---------------------------------------------------------------------------
@@ -305,9 +387,45 @@ def _cxx_constants() -> dict:
 
 def test_chain_layout_constants_match_the_cuda_source():
     c = _cxx_constants()
-    assert (c["kKAlign"], c["kGemvN"], c["kKeyTile"], c["kMaxSplits"]) == (
+    assert (c["kKAlign"], c["kGemvN"], c["kKeyTile"], c["kMaxSplits"],
+            c["kLaneGroup"], c["kGroupMaxKeys"]) == (
         tparams.K_ALIGN, tparams.N_ALIGN, tgen.KEY_TILE,
-        tgen.MAX_DECODE_SPLITS)
+        tgen.MAX_DECODE_SPLITS, tgen.LANE_GROUP, tgen.GROUP_MAX_KEYS)
+
+
+@pytest.mark.parametrize("dh", [50, 64])
+def test_grouped_attention_shared_memory_fits_its_blocks(dh):
+    """grouped_attn_smem (csrc/decode_chain_tc.cuh) at a split of
+    GROUP_MAX_KEYS keys: GROUP_BLOCKS_PER_SM blocks fit a multiprocessor's
+    228 KB (1 KB reserved a block) at the baseline's d_head 50, one block
+    (the grid then takes two waves) up to the chain's d_head cap of 64; a
+    block is one warp a lane of the group, and the merge's weights fit the
+    stage ring it reuses."""
+    c = _cxx_constants()
+    tile = (c["kGroupTile"] * dh * 2 + 39 + 15) // 16 * 16
+    ring = c["kGroupStages"] * (c["kLaneGroup"] + 1) * tile
+    smem = 16 * c["kLaneGroup"] * 32 + ring + 4 * (
+        c["kLaneGroup"] * tgen.GROUP_MAX_KEYS + 4)
+    blocks = tgen.GROUP_BLOCKS_PER_SM if dh == 50 else 1
+    assert blocks * (smem + 1024) <= 228 * 1024
+    assert smem <= 227 * 1024
+    assert 4 * 2 * c["kMaxSplits"] * c["kLaneGroup"] <= ring
+    assert c["kGroupTile"] == 32 and c["kGroupStages"] >= 2
+
+
+def test_gen_args_mirror_the_cuda_struct():
+    """GenArgs lists the fields of struct GenArgs (csrc/decode_chain.cuh)
+    in order, the lane group and the arrival counts included."""
+    import re
+    src = (tgen._native.CSRC / "decode_chain.cuh").read_text()
+    body = src[src.index("struct GenArgs {"):]
+    body = re.sub(r"//[^\n]*", "", body[:body.index("};")])
+    decls = re.findall(r"^\s*(?:const\s+)?\w+\s*\*?\s*([\w\s,]+);", body,
+                       re.M)
+    names = [v.strip() for d in decls for v in d.split(",")]
+    assert names == [f[0] for f in tgen.GenArgs._fields_]
+    assert names.index("lane_group") == names.index("splits") + 1
+    assert names[-1] == "arrive"
 
 
 class _FakeLib:
@@ -326,10 +444,12 @@ class _FakeLib:
 
 
 @pytest.mark.parametrize("layout, size, ok", [
-    ((32, 8, 256, 64), None, True),
-    ((16, 8, 256, 64), None, False),   # W^T K padding drifted
-    ((32, 8, 128, 64), None, False),   # key tile drifted
-    ((32, 8, 256, 64), 8, False),      # GenArgs layout drifted
+    ((32, 8, 256, 64, 8, 512), None, True),
+    ((16, 8, 256, 64, 8, 512), None, False),   # W^T K padding drifted
+    ((32, 8, 128, 64, 8, 512), None, False),   # key tile drifted
+    ((32, 8, 256, 64, 8, 512), 8, False),      # GenArgs layout drifted
+    ((32, 8, 256, 64, 16, 512), None, False),  # lane group drifted
+    ((32, 8, 256, 64, 8, 256), None, False),   # grouped split's keys drifted
 ])
 def test_chain_lib_checks_the_library_layout(monkeypatch, layout, size, ok):
     fake = _FakeLib(layout, size)

@@ -26,6 +26,7 @@ import torch
 
 from transformer_gan_torch import _native
 from transformer_gan_torch import kernel_check as kc
+from transformer_gan_torch.ops import generate as gen_ops
 
 torch.set_num_threads(1)
 
@@ -317,6 +318,67 @@ def test_gan_wrappers_count_launches(cuda):
 def test_bf16_chain_generate_matches_plain(cuda, B, M, count):
     res = kc.check_generate("bfloat16", B, count, M=M)
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("B,M,count,kw", [
+    (32, 2048, 0, {"technique": "gumbel", "same_length": False}),
+    (32, 2048, 256, {"technique": "gumbel", "same_length": False}),
+    (32, 2048, 1024, {"technique": "gumbel", "same_length": False}),
+    (32, 2048, 2016, {"technique": "gumbel", "same_length": False}),
+    (12, kc.MEM_LEN, kc.MEM_LEN, {}),   # a ragged last lane group
+])
+def test_bf16_chain_generate_grouped_matches_plain(cuda, B, M, count, kw):
+    """K3 on the lane-grouped decode attention (the metrics eval's wave,
+    B 32 at M 2048): the route's splits, one generate_chunk_grouped count a
+    call (check_generate holds both)."""
+    res = kc.check_generate("bfloat16", B, count, M=M, **kw)
+    assert res["ok"], res
+    assert all(c["lane_group"] == gen_ops.LANE_GROUP for c in res["chunks"])
+
+
+def test_bf16_chain_generate_forced_grouped_at_one_lane(cuda):
+    """The grouped kernel with a group of one lane (B 1, M 4146), which the
+    route leaves to split_attn_kernel, against the plain version."""
+    with kc.forced_route(gen_ops.LANE_GROUP):
+        res = kc.check_generate("bfloat16", 1, kc.MEM_LEN)
+    assert res["ok"], res
+
+
+def test_bf16_chain_counts_grouped_launches(cuda):
+    """The "_grouped" counters count the calls on lane groups: K3 at
+    evalgen's shape, not at B 2; K4 and K5 not at the GAN's shapes (B 64 at
+    M 64, B 32 at M 128, B 8 at M 128), but at B 8, M 1024, where the
+    grouped grid fills the card."""
+    _native.reset_launches()
+    case = kc.GenerateCase("bfloat16", 32, 100, M=2048)
+    case.run(2, case.noise(2))
+    small = kc.GenerateCase("bfloat16", 2, 10, M=64)
+    small.run(3, small.noise(3))
+    for B, M in ((64, kc.GAN_MEM), (32, 128), (8, 128)):
+        dec = kc.DecodeCase("bfloat16", B, M, M=M)
+        dec.run(3, dec.noise(3))
+        dec.run_steps(2, dec.noise(2))
+    assert _native.LAUNCHES["generate_chunk_tc"] == 2
+    assert _native.LAUNCHES["generate_chunk_grouped"] == 1
+    assert _native.LAUNCHES["decode_chunk_tc"] == 3
+    assert _native.LAUNCHES["decode_step_tc"] == 6
+    assert _native.LAUNCHES["decode_chunk_grouped"] == 0
+    assert _native.LAUNCHES["decode_step_grouped"] == 0
+    dec = kc.DecodeCase("bfloat16", 8, 1024, M=1024)
+    dec.run(3, dec.noise(3))
+    dec.run_steps(2, dec.noise(2))
+    assert _native.LAUNCHES["decode_chunk_grouped"] == 1
+    assert _native.LAUNCHES["decode_step_grouped"] == 2
+
+
+@pytest.mark.parametrize("step", [False, True])
+def test_bf16_chain_decode_grouped_matches_plain(cuda, step):
+    """K4 (and K5) at B 8, M 1024, where the route takes lane groups (no
+    GAN caller does), against the plain version with its splits;
+    check_decode holds each launch's grouped count against the route."""
+    res = kc.check_decode("bfloat16", 8, 1024, M=1024, step=step)
+    assert res["ok"], res
+    assert all(c["lane_group"] == gen_ops.LANE_GROUP for c in res["chunks"])
 
 
 @pytest.mark.parametrize("B,count", [(64, 0), (64, 37), (64, kc.GAN_MEM),

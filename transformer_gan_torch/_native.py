@@ -35,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (the "_tc" entries count the bf16 calls, a subset of the calls of the
 # plain names: K1f / K1b / K2f / K2b on the tensor-core kernels, K3 / K4 /
 # K5 on the bf16 decode chain of csrc/decode_chain_tc.cuh, K6 / K7 on the
-# bf16 reverse chain of csrc/chain_bwd_tc.cu)
+# bf16 reverse chain of csrc/chain_bwd_tc.cu; the "_grouped" entries the
+# bf16 K3 / K4 / K5 calls whose decode attention takes lane groups)
 LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
                             "xl_attn_bwd_v2": 0, "xl_attn_bwd_v1": 0,
                             "xl_attn_fwd_v2_tc": 0, "xl_attn_bwd_v2_tc": 0,
@@ -45,7 +46,10 @@ LAUNCHES: dict[str, int] = {"xl_attn_fwd_v2": 0, "xl_attn_fwd_v1": 0,
                             "decode_chunk_tc": 0, "decode_step_tc": 0,
                             "chain_bwd_res": 0, "chain_bwd_recompute": 0,
                             "chain_bwd_res_tc": 0,
-                            "chain_bwd_recompute_tc": 0}
+                            "chain_bwd_recompute_tc": 0,
+                            "generate_chunk_grouped": 0,
+                            "decode_chunk_grouped": 0,
+                            "decode_step_grouped": 0}
 
 _lock = threading.Lock()
 _lib = None

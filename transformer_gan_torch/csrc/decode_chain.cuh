@@ -255,6 +255,7 @@ struct GenArgs {
   int t0;             // chunk step of the call's first token
   int C;              // rows of the staged ring (>= t0 + n)
   int splits;         // bf16: key splits of decode attention (decode_chain_tc.cuh)
+  int lane_group;     // bf16: 0, split_attn_kernel; kLaneGroup, grouped_split_attn_kernel
   float scale, temperature;
   const void* kv;     // [L, 2, H, B, M, dh] big K/V cache (the XL memory)
   const void* R;      // [L, M + 1, HD], row r = distance M - r
@@ -299,9 +300,10 @@ struct GenArgs {
   const void* ff1_t;  // [L, npad(DI), kpad(HD)]
   const void* ff2_t;  // [L, npad(HD), kpad(DI)]
   const void* lg_t;   // [npad(V), kpad(HD)]
-  float* opart;       // [splits, B, HD] float scratch when splits > 1
-  float* ml;          // [splits, B, H, 2] float scratch when splits > 1
+  float* opart;       // [splits, B, HD] float scratch when splits > 1 or lane_group
+  float* ml;          // [splits, B, H, 2] float scratch when splits > 1 or lane_group
   const void* R_h;    // [L, H, M + 1, dh]: R with each head's rows contiguous
+  int* arrive;        // [H, ceil(B / lane_group)] zeroed int scratch when lane_group
 };
 
 // The chain for tokens t0 .. t0 + n - 1 of a chunk: per token the embed, the

@@ -9,7 +9,8 @@
 // weights, the big K/V cache and the staged ring in VMEM and walk a
 // sequential (T, L) grid. Here one C entry point per call runs a host loop
 // over the tokens and layers on the caller's stream (as run_chain does), and
-// each token makes 5 launches a layer (6 with split keys) plus 2:
+// each token makes 5 launches a layer (6 with split keys below 8 lanes)
+// plus 2:
 //   qkv GEMV (embed gather or the last LayerNorm in its prologue; k and v
 //   land in the staged ring at row t) -> split-key decode attention
 //   [-> split combine] -> o GEMV (residual add in its epilogue) ->
@@ -31,6 +32,26 @@
 //   keeps its own softmax (m, l, unnormalised P V); a combine kernel merges
 //   the splits in split order (the algebra of K1f / K2f's combine), no
 //   atomics. 128 threads a block fit the GAN's 640 (h, b) blocks in one wave.
+// * Decode attention over many lanes (K3 in the metrics eval: B 32, M 2048;
+//   the CLI at B 8) is bound by the K/V bytes each token streams (at B 32
+//   and a full ring, 133 MB a layer, 2.6x the L2). A block a (h, b) would
+//   copy R's rows again for every lane, load everything and then compute,
+//   with its SM idle on one or the other, and merge in a launch of its own.
+//   Where the keys are split, B >= 8 and the grouped grid has a block for
+//   each SM (ops/generate.decode_route), grouped_split_attn_kernel takes
+//   (h, 8 lanes, split): R's rows are
+//   copied once for the group; a ring of 3 cp.async stages of 32-key tiles
+//   keeps two tiles (~58 KB) a block in flight while the third is scored or
+//   summed; the splits (ops/generate.grouped_key_splits) are as many as
+//   two blocks a multiprocessor hold, so the grid is one wave; the last
+//   block of a group to arrive (an int count, reset by that block) merges
+//   the group's splits, so no combine launch. 32 launches a token at L 6 on
+//   this route. What bounds it now: at a full ring the K/V stream runs near
+//   HBM rate (~2.6 TB/s on the added bytes), and a layer's attention has a
+//   fixed cost of ~11 us (the chain after pdl_wait: q's loads, a tile's
+//   scoring and P V behind block barriers, the parts' writes, the fence and
+//   the arrival count, the merge) that dominates the short rings of a
+//   call's first chunks; then the GEMV chain.
 // * The GEMVs at the GAN's B 64 are bound by operations and at B 1 by
 //   bytes (24 MB of weights a token). The old GEMV read every weight once
 //   per lane; here a block owns 8 output columns for up to 64 lanes and
@@ -42,7 +63,7 @@
 //   blocks (63 to 188 at HD 500) fill the card at B 1 without a second pass.
 // * Launches: LayerNorms and residual adds ride in the GEMVs' prologues and
 //   epilogues and q, k, v share one launch: 32 a token at L 6, 38 with split
-//   keys (57 before). Each block recomputes the LayerNorm statistics of its
+//   keys on split_attn_kernel (57 before). Each block recomputes the LayerNorm statistics of its
 //   lanes' 500-long rows in fp32, the cost of folding it in: at B 64 that
 //   is the GEMVs' largest part, so wide lane tiles take 16 warps.
 // * Each launch's fixed cost: every kernel is launched with programmatic
@@ -81,6 +102,13 @@ constexpr int kKAlign = 32;       // W^T rows padded to a multiple: a k-step of 
 constexpr int kGemvN = 8;         // output columns a GEMV block takes; W^T rows padded to it
 constexpr int kKeyTile = 256;     // keys a decode-attention tile holds
 constexpr int kMaxSplits = 64;    // key splits the combine takes
+// The lane-grouped decode attention (grouped_split_attn_kernel); the Python
+// side routes and splits by the first and the last (ops/generate.py
+// LANE_GROUP, GROUP_MAX_KEYS), and tg_decode_chain_layout reports them too.
+constexpr int kLaneGroup = 8;       // lanes a block takes, a warp each
+constexpr int kGroupTile = 32;      // keys a stage holds, a thread each
+constexpr int kGroupStages = 3;     // stages of the shared-memory ring
+constexpr int kGroupMaxKeys = 512;  // keys of a split, whose scores stay in shared memory
 
 __host__ __device__ inline int kpad(int K) { return (K + kKAlign - 1) / kKAlign * kKAlign; }
 __host__ __device__ inline int npad(int N) { return (N + kGemvN - 1) / kGemvN * kGemvN; }
@@ -638,23 +666,297 @@ split_combine_kernel(const float* __restrict__ opart, const float* __restrict__ 
   }
 }
 
+// nbytes (a multiple of 4) from device memory to shared memory by cp.async,
+// dst and src equal modulo 16: 16 bytes at a time, 4 at the two ends. The
+// threads first, first + step, ... share the copy.
+__device__ __forceinline__ void rows_copy(unsigned char* dst, const unsigned char* src,
+                                          int nbytes, int first, int step) {
+  const int head =
+      min(nbytes, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15));
+  const int body = (nbytes - head) & ~15;
+  for (int i = first * 4; i < head; i += step * 4) tc::cp_async4(dst + i, src + i, true);
+  for (int i = head + first * 16; i < head + body; i += step * 16) cp_async16(dst + i, src + i);
+  for (int i = head + body + first * 4; i < nbytes; i += step * 4)
+    tc::cp_async4(dst + i, src + i, true);
+}
+
+// Bytes of a stage's buffer for kGroupTile rows of dh: the big cache's rows
+// at their source's offset modulo 16, then the ring's at theirs, so that
+// both copy 16 bytes at a time (at most 39 bytes of offsets).
+__host__ __device__ inline int group_tile_bytes(int dh) {
+  return (kGroupTile * dh * 2 + 39 + 15) & ~15;
+}
+
+__host__ inline size_t grouped_attn_smem(int dh, int sc_stride) {
+  return sizeof(float4) * kLaneGroup * 32 +
+         static_cast<size_t>(kGroupStages) * (kLaneGroup + 1) * group_tile_bytes(dh) +
+         sizeof(float) * (static_cast<size_t>(kLaneGroup) * sc_stride + 4);
+}
+
+// One lane's rows of a stage: keys k .. k + nt - 1 of the token (big slots
+// jlo .. M-1, then ring slots 0 .. t), nb1 of them from the big cache (s1),
+// the rest from the ring (s2), landing in the stage buffer at p1 and p2.
+struct GroupRows {
+  const unsigned char* s1;
+  const unsigned char* s2;
+  unsigned char* p1;
+  unsigned char* p2;
+  int nb1;
+};
+
+__device__ __forceinline__ GroupRows group_rows(unsigned char* buf, const bf16* big,
+                                                const bf16* staged, long long hb, int M, int C,
+                                                int jlo, int n_big, int k, int nt, int dh) {
+  GroupRows r;
+  r.nb1 = max(0, min(nt, n_big - k));
+  r.s1 = reinterpret_cast<const unsigned char*>(big + (hb * M + jlo + k) * dh);
+  r.s2 = reinterpret_cast<const unsigned char*>(staged + (hb * C + max(0, k - n_big)) * dh);
+  const int o1 = r.nb1 > 0 ? static_cast<int>(reinterpret_cast<uintptr_t>(r.s1) & 15) : 0;
+  r.p1 = buf + o1;
+  r.p2 = buf + ((o1 + r.nb1 * dh * 2 + 15) & ~15) + (reinterpret_cast<uintptr_t>(r.s2) & 15);
+  return r;
+}
+
+// One token's attention for layer l over a group of lanes, block (h, group,
+// split): the keys of split s of S as split_attn_kernel cuts them, for lanes
+// b0 .. b0 + ng - 1 (ng <= kLaneGroup), warp g taking lane b0 + g. The split
+// streams through a ring of kGroupStages shared-memory stages of kGroupTile
+// keys, kGroupStages - 1 of them in flight while one is used: first its key
+// tiles (R's rows, copied once for the group, and each lane's K rows), then
+// its value tiles (each lane's V rows). A thread scores one key of its
+// warp's lane (q in shared memory); the split's scores stay in shared
+// memory, so the softmax is the warp's own: m_s, p = rnd(exp(s - m_s)),
+// l_s unrounded; lanes 0 .. dh/2 - 1 then sum rnd(p) v on two columns each.
+// Each block writes its unnormalised sum, m_s and l_s (opart, ml) and counts
+// itself in arrive[h, group]; the last of the S blocks merges the group's
+// splits in split order (split_combine_kernel's algebra), writes ctx and
+// sets the count back to 0 for the next launch.
+__global__ void __launch_bounds__(kLaneGroup * 32, 2)
+grouped_split_attn_kernel(const bf16* __restrict__ qb, const bf16* __restrict__ Kb,
+                          const bf16* __restrict__ Vb, const bf16* __restrict__ sk,
+                          const bf16* __restrict__ sv, const bf16* __restrict__ Rh,
+                          const bf16* __restrict__ rwb, const bf16* __restrict__ rrb,
+                          float* __restrict__ opart, float* __restrict__ ml,
+                          int* __restrict__ arrive, bf16* __restrict__ ctx, int B, int M, int C,
+                          int HD, int dh, int t, int count, int sl, float scale,
+                          int sc_stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kThreads = kLaneGroup * 32;
+  constexpr int kAhead = kGroupStages - 1;
+  const int h = blockIdx.x, grp = blockIdx.y, split = blockIdx.z;
+  const int H = gridDim.x, S = gridDim.z;
+  const int tid = threadIdx.x, g = tid >> 5, lane = tid & 31;
+  const int b0 = grp * kLaneGroup, b = b0 + g;
+  const bool active = b < B;
+  const long long hb = static_cast<long long>(h) * B + b;
+  const int dw = dh / 2, row_bytes = dh * 2;
+  const int tile_bytes = group_tile_bytes(dh);
+  const int stage_bytes = (kLaneGroup + 1) * tile_bytes;
+
+  const int jlo = min(M, max(M - count, t + sl));
+  const int n_big = M - jlo;
+  const int n_keys = n_big + t + 1;
+  const int base = n_keys / S, rem = n_keys % S;
+  const int lo = split * base + min(split, rem);
+  const int n = base + (split < rem ? 1 : 0);
+  const int nkt = (n + kGroupTile - 1) / kGroupTile;
+  const int items = 2 * nkt;  // the key tiles, then the value tiles
+
+  float4* qq = reinterpret_cast<float4*>(smem_raw);  // [kLaneGroup][32]
+  unsigned char* stages = smem_raw + sizeof(float4) * kLaneGroup * 32;
+  float* sc = reinterpret_cast<float*>(stages + kGroupStages * stage_bytes);
+  int* last = reinterpret_cast<int*>(sc + kLaneGroup * sc_stride);
+  float* scg = sc + g * sc_stride;  // [sc_stride]: the lane's scores, then rnd(p)
+  const float4* qg = qq + g * 32;
+
+  const bf16* rsplit = Rh + (static_cast<long long>(h) * (M + 1) + jlo + lo - t) * dh;
+  auto stage = [&](int i) { return stages + (i % kGroupStages) * stage_bytes; };
+  auto first_key = [&](int i) { return (i < nkt ? i : i - nkt) * kGroupTile; };
+  auto r_src = [&](int k0) {
+    return reinterpret_cast<const unsigned char*>(rsplit + static_cast<long long>(k0) * dh);
+  };
+  auto lane_rows = [&](int i) {
+    const int k0 = first_key(i);
+    return group_rows(stage(i) + g * tile_bytes, i < nkt ? Kb : Vb, i < nkt ? sk : sv, hb, M,
+                      C, jlo, n_big, lo + k0, min(kGroupTile, n - k0), dh);
+  };
+  // item i's copies: part 0 the big cache's rows and R's, which no kernel of
+  // the call writes; part 1 the ring's, whose row t the qkv GEMV writes
+  auto issue = [&](int i, int part) {
+    const int k0 = first_key(i);
+    const int nt = min(kGroupTile, n - k0);
+    if (i < nkt && part == 0) {
+      const unsigned char* src = r_src(k0);
+      rows_copy(stage(i) + kLaneGroup * tile_bytes + (reinterpret_cast<uintptr_t>(src) & 15),
+                src, nt * row_bytes, tid, kThreads);
+    }
+    if (active) {
+      const GroupRows r = lane_rows(i);
+      if (part == 0 && r.nb1 > 0) rows_copy(r.p1, r.s1, r.nb1 * row_bytes, lane, 32);
+      if (part == 1 && nt > r.nb1) rows_copy(r.p2, r.s2, (nt - r.nb1) * row_bytes, lane, 32);
+    }
+  };
+
+  // before the wait: the first stages' big-cache and R rows
+  const int pre = min(kAhead, items);
+  for (int i = 0; i < pre; ++i) issue(i, 0);
+  tc::cp_async_commit();
+  pdl_wait();
+  pdl_trigger();
+  for (int i = 0; i < pre; ++i) issue(i, 1);
+  tc::cp_async_commit();
+  for (int e = tid; e < kLaneGroup * dw; e += kThreads) {
+    const int lg = e / dw, w = e - lg * dw;
+    if (b0 + lg >= B) break;
+    const int hoff = h * dh;
+    const float2 qv =
+        bf2(reinterpret_cast<const uint32_t*>(qb + static_cast<long long>(b0 + lg) * HD + hoff)[w]);
+    const float2 wb = bf2(reinterpret_cast<const uint32_t*>(rwb + hoff)[w]);
+    const float2 rb = bf2(reinterpret_cast<const uint32_t*>(rrb + hoff)[w]);
+    qq[lg * 32 + w] = make_float4(rnd<bf16>(qv.x + wb.x), rnd<bf16>(qv.y + wb.y),
+                                  rnd<bf16>(qv.x + rb.x), rnd<bf16>(qv.y + rb.y));
+  }
+
+  float lmax = -INFINITY, lsum = 0.f, m = -INFINITY;
+  float2 acc = make_float2(0.f, 0.f);
+  for (int i = 0; i < items; ++i) {
+    if (i == 0)
+      tc::cp_async_wait<0>();
+    else
+      tc::cp_async_wait<kAhead - 1>();
+    __syncthreads();  // item i is in, item i - 1's stage is free, q is in
+    if (i + kAhead < items) {
+      issue(i + kAhead, 0);
+      issue(i + kAhead, 1);
+    }
+    tc::cp_async_commit();
+    if (!active) continue;
+    const GroupRows r = lane_rows(i);
+    const int k0 = first_key(i);
+    const int nt = min(kGroupTile, n - k0);
+    auto row = [&](int j) {
+      return reinterpret_cast<const uint32_t*>(j < r.nb1 ? r.p1 + j * row_bytes
+                                                         : r.p2 + (j - r.nb1) * row_bytes);
+    };
+    if (i < nkt) {
+      if (lane < nt) {
+        const unsigned char* src = r_src(k0);
+        const uint32_t* rt =
+            reinterpret_cast<const uint32_t*>(stage(i) + kLaneGroup * tile_bytes +
+                                              (reinterpret_cast<uintptr_t>(src) & 15)) +
+            lane * dw;
+        const uint32_t* kt = row(lane);
+        float ac = 0.f, bd = 0.f;
+        for (int w = 0; w < dw; ++w) {
+          const float4 q4 = qg[w];
+          const float2 kv = bf2(kt[w]);
+          const float2 rv = bf2(rt[w]);
+          ac += q4.x * kv.x + q4.y * kv.y;
+          bd += q4.z * rv.x + q4.w * rv.y;
+        }
+        const float s = rnd<bf16>(rnd<bf16>(ac) + rnd<bf16>(bd)) * scale;
+        scg[k0 + lane] = s;
+        lmax = fmaxf(lmax, s);
+      }
+      if (i == nkt - 1) {  // the split's scores are in: the lane's softmax
+        m = warp_max(lmax);
+        __syncwarp();
+        for (int j = lane; j < n; j += 32) {
+          const float e = expf(scg[j] - m);
+          scg[j] = rnd<bf16>(e);
+          lsum += e;
+        }
+        __syncwarp();
+      }
+    } else if (lane < dw) {
+      for (int j = 0; j < nt; ++j) {
+        const float p = scg[k0 + j];
+        const float2 v = bf2(row(j)[lane]);
+        acc.x += p * v.x;
+        acc.y += p * v.y;
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  // the split's part; then the last block of the group merges
+  if (active) {
+    const float l = warp_sum(lsum);
+    if (lane < dw)
+      reinterpret_cast<float2*>(opart + (static_cast<long long>(split) * B + b) * HD +
+                                h * dh)[lane] = acc;
+    if (lane == 0) {
+      float* p = ml + ((static_cast<long long>(split) * B + b) * H + h) * 2;
+      p[0] = m;  // -inf for an empty split
+      p[1] = l;
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = arrive + h * gridDim.y + grp;
+    const int prev = atomicAdd(cnt, 1);
+    *last = prev == S - 1;
+    if (prev == S - 1) atomicExch(cnt, 0);
+  }
+  __syncthreads();
+  if (*last == 0 || !active) return;
+  __threadfence();
+  // lane b's splits in split order: m = max m_s, w_s = exp(m_s - m) (0 for
+  // an empty split), l = sum w_s l_s, ctx = rnd(sum_s w_s o_s * (1 / l)),
+  // the parts read from L2 (other blocks wrote them)
+  float* wts = reinterpret_cast<float*>(stages) + g * 2 * kMaxSplits;  // w_s, then l_s
+  auto mls = [&](int s) {
+    return reinterpret_cast<const float2*>(ml +
+                                           ((static_cast<long long>(s) * B + b) * H + h) * 2);
+  };
+  float mm = -INFINITY;
+  for (int s = lane; s < S; s += 32) mm = fmaxf(mm, __ldcg(mls(s)).x);
+  mm = warp_max(mm);
+  for (int s = lane; s < S; s += 32) {
+    const float2 p = __ldcg(mls(s));
+    wts[s] = p.x == -INFINITY ? 0.f : expf(p.x - mm);
+    wts[kMaxSplits + s] = p.y;
+  }
+  __syncwarp();
+  if (lane < dw) {
+    const float2* ob =
+        reinterpret_cast<const float2*>(opart + static_cast<long long>(b) * HD + h * dh) + lane;
+    const long long step = static_cast<long long>(B) * HD / 2;
+    float l = 0.f;
+    float2 o = make_float2(0.f, 0.f);
+    for (int s = 0; s < S; ++s) {
+      const float w = wts[s];
+      const float2 v = __ldcg(ob + s * step);
+      l += w * wts[kMaxSplits + s];
+      o.x += w * v.x;
+      o.y += w * v.y;
+    }
+    const float inv = 1.f / l;
+    reinterpret_cast<uint32_t*>(ctx + static_cast<long long>(b) * HD + h * dh)[lane] =
+        tc::pack_bf16(o.x * inv, o.y * inv);
+  }
+}
+
 }  // namespace
 
 // The bf16 chain for tokens t0 .. t0 + n - 1 of a chunk (see the top of
 // this file); sample(logits, i, t) launches the caller's sampling epilogue.
 // Scratch: x (the layer input, the residual of the o GEMV), attn (the
 // attention block's residual sum), out (the FF block's residual), hid, ff
-// (the layer's output sum), q, ctx, logits; opart / ml when splits > 1.
+// (the layer's output sum), q, ctx, logits; opart / ml when splits > 1 or
+// lane groups, and arrive (zeroed) with lane groups.
 template <typename Sample>
 static int run_chain_tc(const GenArgs& a, cudaStream_t st, Sample sample) {
   const int L = a.L, B = a.B, M = a.M, HD = a.HD, DI = a.DI, H = a.H, V = a.V, n = a.n;
-  const int C = a.C, S = a.splits;
+  const int C = a.C, S = a.splits, G = a.lane_group;
   const int dh = HD / H;
   if (dh % 2 != 0 || dh > 64 || DI % 2 != 0 || S < 1 ||
       S > kMaxSplits ||
       a.qkv_t == nullptr || a.o_t == nullptr || a.ff1_t == nullptr || a.ff2_t == nullptr ||
       a.lg_t == nullptr || a.R_h == nullptr ||
-      (S > 1 && (a.opart == nullptr || a.ml == nullptr)))
+      ((S > 1 || G != 0) && (a.opart == nullptr || a.ml == nullptr)) ||
+      (G != 0 && (G != kLaneGroup || a.arrive == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long big_kv = static_cast<long long>(B) * M * HD;
   const long long st_kv = static_cast<long long>(B) * C * HD;
@@ -677,10 +979,19 @@ static int run_chain_tc(const GenArgs& a, cudaStream_t st, Sample sample) {
     default: e = tg_allow_smem(tc_gemv_kernel<4, 16>, gsmem); break;
   }
   if (e != cudaSuccess) return static_cast<int>(e);
+  // decode attention: keys a split holds at most, its kernel's shared memory
   const int max_keys = (M + C + S - 1) / S;
   const int tile_keys = max_keys < kKeyTile ? max_keys : kKeyTile;
-  const size_t asmem = split_attn_smem(dh, tile_keys, max_keys);
-  if ((e = tg_allow_smem(split_attn_kernel, asmem)) != cudaSuccess) return static_cast<int>(e);
+  size_t asmem;
+  if (G != 0) {
+    if (max_keys > kGroupMaxKeys) return static_cast<int>(cudaErrorInvalidValue);
+    asmem = grouped_attn_smem(dh, max_keys);
+    e = tg_allow_smem(grouped_split_attn_kernel, asmem);
+  } else {
+    asmem = split_attn_smem(dh, tile_keys, max_keys);
+    e = tg_allow_smem(split_attn_kernel, asmem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
 
   auto gemv = [&](const GemvIn& in, const bf16* Wt, int K, int N, const GemvOut& o) -> int {
     dim3 grid(npad(N) / kGemvN, (B + kLaneTile - 1) / kLaneTile);
@@ -749,17 +1060,27 @@ static int run_chain_tc(const GenArgs& a, cudaStream_t st, Sample sample) {
       if ((rc = gemv(in, P(a.qkv_t) + static_cast<long long>(l) * npad(3 * HD) * Kh, HD,
                      3 * HD, o)))
         return rc;
-      if ((rc = launch_pdl(split_attn_kernel, dim3(H, B, S), kSplitThreads, asmem, st,
-                           static_cast<const bf16*>(q), Kl, Kl + big_kv,
-                           static_cast<const bf16*>(skl), static_cast<const bf16*>(skl + st_kv),
-                           P(a.R_h) + static_cast<long long>(l) * (M + 1) * HD, P(a.rwb),
-                           P(a.rrb), a.opart, a.ml, ctx, M, C, HD, dh, t, a.count,
-                           a.same_length ? 1 : 0, a.scale, tile_keys)))
-        return rc;
-      if (S > 1 && (rc = launch_pdl(split_combine_kernel, dim3(H, B), kTcThreads, 0, st,
-                                    static_cast<const float*>(a.opart),
-                                    static_cast<const float*>(a.ml), ctx, S, HD, dh)))
-        return rc;
+      const bf16* Rl = P(a.R_h) + static_cast<long long>(l) * (M + 1) * HD;
+      if (G != 0) {  // lane groups: the splits merged by the last block of each
+        if ((rc = launch_pdl(grouped_split_attn_kernel, dim3(H, (B + G - 1) / G, S),
+                             kLaneGroup * 32, asmem, st, static_cast<const bf16*>(q), Kl,
+                             Kl + big_kv, static_cast<const bf16*>(skl),
+                             static_cast<const bf16*>(skl + st_kv), Rl, P(a.rwb), P(a.rrb),
+                             a.opart, a.ml, a.arrive, ctx, B, M, C, HD, dh, t, a.count,
+                             a.same_length ? 1 : 0, a.scale, max_keys)))
+          return rc;
+      } else {
+        if ((rc = launch_pdl(split_attn_kernel, dim3(H, B, S), kSplitThreads, asmem, st,
+                             static_cast<const bf16*>(q), Kl, Kl + big_kv,
+                             static_cast<const bf16*>(skl), static_cast<const bf16*>(skl + st_kv),
+                             Rl, P(a.rwb), P(a.rrb), a.opart, a.ml, ctx, M, C, HD, dh, t,
+                             a.count, a.same_length ? 1 : 0, a.scale, tile_keys)))
+          return rc;
+        if (S > 1 && (rc = launch_pdl(split_combine_kernel, dim3(H, B), kTcThreads, 0, st,
+                                      static_cast<const float*>(a.opart),
+                                      static_cast<const float*>(a.ml), ctx, S, HD, dh)))
+          return rc;
+      }
       // o: s1 = rnd(x + rnd(ctx W_o))
       in = GemvIn{};
       in.src = ctx;

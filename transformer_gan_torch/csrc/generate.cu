@@ -127,10 +127,12 @@ extern "C" int tg_sizeof_gen_args() { return static_cast<int>(sizeof(GenArgs)); 
 
 // The bf16 chain's layout constants (decode_chain_tc.cuh), for the Python
 // side to check its own against: W^T's K and N padding, the key tile, the
-// most key splits.
+// most key splits, the lane group and the most keys of a grouped split.
 extern "C" void tg_decode_chain_layout(int* out) {
   out[0] = kKAlign;
   out[1] = kGemvN;
   out[2] = kKeyTile;
   out[3] = kMaxSplits;
+  out[4] = kLaneGroup;
+  out[5] = kGroupMaxKeys;
 }

@@ -9,6 +9,7 @@ Only for CUDA devices; float32 comparisons assume TF32 is off
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -367,7 +368,27 @@ class GenerateCase:
 def _chain_splits(cfg, B: int, n_keys: int, device):
     if cfg.cdtype != torch.bfloat16:
         return None
-    return gen_ops.chain_key_splits(cfg.n_head, B, n_keys, device)
+    return gen_ops.chain_route(cfg.n_head, B, n_keys, device)[1]
+
+
+@contextlib.contextmanager
+def forced_route(group: int):
+    """The bf16 chain's calls inside take one route of the decode attention
+    whatever the shape: ``group`` LANE_GROUP the lane-grouped kernel, 0
+    ``split_attn_kernel`` and its combine, each with its own splits (so that
+    both routes can be timed and checked at one shape)."""
+    chosen = gen_ops.chain_route
+
+    def forced(H, B, n_keys, device):
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        if group:
+            return group, gen_ops.grouped_key_splits(H, B, n_keys, n_sm)
+        return 0, gen_ops.decode_key_splits(H, B, n_keys, n_sm)
+    gen_ops.chain_route = forced
+    try:
+        yield
+    finally:
+        gen_ops.chain_route = chosen
 
 
 def first_divergence(a: torch.Tensor, b: torch.Tensor) -> list:
@@ -384,8 +405,10 @@ def check_generate(dtype: str, B: int, count: int, chunks=(32, 7),
     state; each chunk run by the kernel and by the plain version on the
     same operands and noise. bf16 (the split-key chain) is held against
     the plain version with the kernel's splits and against the unsplit one,
-    each within LOGIT_ULPS_BF16 on the first step's logits. ``kw``:
+    each within LOGIT_ULPS_BF16 on the first step's logits, and each call's
+    ``generate_chunk_grouped`` count against its route. ``kw``:
     :class:`GenerateCase`'s (``technique``, ``same_length``, ``M``)."""
+    from . import _native
     case = GenerateCase(dtype, B, count, **kw)
     res = {"dtype": dtype, "B": B, "count": count,
            "technique": case.scfg.technique,
@@ -393,8 +416,10 @@ def check_generate(dtype: str, B: int, count: int, chunks=(32, 7),
     ok = True
     for n in chunks:
         g = case.noise(n)
+        grouped0 = _native.LAUNCHES["generate_chunk_grouped"]
         k_out = case.run(n, g, return_logits=True)
         torch.cuda.synchronize()
+        grouped = _native.LAUNCHES["generate_chunk_grouped"] - grouped0
         p_out = case.run(n, g, plain=True, return_logits=True)
         ids_equal = bool(torch.equal(k_out[2], p_out[2]))
         stage_err = float((k_out[3].float() - p_out[3].float()).abs().max())
@@ -414,11 +439,15 @@ def check_generate(dtype: str, B: int, count: int, chunks=(32, 7),
             lg_s = s_out[4][0].float()
             s_err = float((lg_k - lg_s).abs().max())
             ulp_s = bf16_ulp(float(lg_s.abs().max()))
-            chunk.update(splits=S, logit0_ulps=s_err / ulp_s,
+            group = gen_ops.chain_route(case.cfg.n_head, B, case.M + n,
+                                        case.device)[0]
+            chunk.update(splits=S, lane_group=group, grouped_calls=grouped,
+                         logit0_ulps=s_err / ulp_s,
                          ids_equal_split_plain=bool(torch.equal(k_out[2],
                                                                 s_out[2])))
             chunk["ok"] = (s_err <= LOGIT_ULPS_BF16 * ulp_s
-                           and logit_err <= LOGIT_ULPS_BF16 * ulp)
+                           and logit_err <= LOGIT_ULPS_BF16 * ulp
+                           and grouped == (1 if group else 0))
         ok = ok and chunk["ok"]
         res["chunks"].append(chunk)
         case.advance(k_out, n)
@@ -426,6 +455,26 @@ def check_generate(dtype: str, B: int, count: int, chunks=(32, 7),
     res["max_abs_err"] = max(max(c["stage_max_abs_err"], c["logit0_max_abs_err"])
                              for c in res["chunks"])
     return res
+
+
+def time_decode_routes(B: int, M: int = MEM_LEN, n: int = 32, iters: int = 3,
+                       **kw) -> dict:
+    """Milliseconds of K3's bf16 n-token call on a full M-slot ring at B
+    lanes on each route of the decode attention (:func:`forced_route`),
+    timed in turns (CUDA events): ``split_attn`` and ``grouped``, and the
+    route ``chain_route`` takes at this shape. ``kw``: GenerateCase's."""
+    case = GenerateCase("bfloat16", B, M, M=M, **kw)
+    g = case.noise(n)
+
+    def on(group):
+        def call():
+            with forced_route(group):
+                return case.run(n, g)
+        return call
+    grouped, split = time_in_turns(on(gen_ops.LANE_GROUP), on(0), iters)
+    chosen = gen_ops.chain_route(case.cfg.n_head, B, M + n, case.device)[0]
+    return {"B": B, "M": M, "split_attn": split, "grouped": grouped,
+            "route": "grouped" if chosen else "split_attn"}
 
 
 # ---------------------------------------------------------------------------
@@ -533,24 +582,37 @@ def check_decode(dtype: str, B: int, count: int, chunks=(32, 27),
     """K4 (or, with ``step``, K5) against its plain version: the GAN's
     chunks of 32 and 27 tokens, the second continuing from the kernel's
     state. bf16 (the split-key chain) is held against the plain version
-    with the kernel's splits and against the unsplit one."""
+    with the kernel's splits and against the unsplit one, and each
+    launch's ``decode_chunk_grouped`` / ``decode_step_grouped`` count
+    against its route."""
+    from . import _native
     case = DecodeCase(dtype, B, count, **kw)
     res = {"kernel": "K5" if step else "K4", "dtype": dtype, "B": B,
            "count": count, "chunks": []}
     run = case.run_steps if step else case.run
+    entry = "decode_step" if step else "decode_chunk"
     for n in chunks:
         g = case.noise(n)
+        launches0, grouped0 = (_native.LAUNCHES[entry],
+                               _native.LAUNCHES[entry + "_grouped"])
         k_out = run(n, g)
         torch.cuda.synchronize()
+        launches = _native.LAUNCHES[entry] - launches0
+        grouped = _native.LAUNCHES[entry + "_grouped"] - grouped0
         p_out = run(n, g, plain=True)
         c = {"n": n, "count": case.count, **_compare_samples(dtype, k_out,
                                                              p_out)}
         if dtype != "float32":
-            S = case.splits(max(n, 32) if step else n)
+            C = max(n, 32) if step else n
+            S = case.splits(C)
+            group = gen_ops.chain_route(case.cfg.n_head, B, case.M + C,
+                                        case.device)[0]
             split = _compare_samples(dtype, k_out,
                                      run(n, g, plain=True, splits=S))
-            c.update(splits=S, split_plain=split,
-                     ok=c["ok"] and split["ok"])
+            c.update(splits=S, lane_group=group, grouped_calls=grouped,
+                     split_plain=split,
+                     ok=(c["ok"] and split["ok"]
+                         and grouped == (launches if group else 0)))
         res["chunks"].append(c)
         case.advance(k_out, n)
     res["ok"] = all(c["ok"] for c in res["chunks"])
@@ -1195,11 +1257,12 @@ def sampler_stream_bytes(n, B, M, count, L=6, HD=500, es=2, t0=0):
                for t in range(t0, t0 + n))
 
 
-def chain_launches_per_token(L: int, splits: int) -> int:
+def chain_launches_per_token(L: int, splits: int, lane_group: int = 0) -> int:
     """Kernel launches a token of the bf16 decode chain makes
-    (csrc/decode_chain_tc.cuh): qkv, attention, [combine], o, FF1, FF2 a
-    layer, then the logits GEMV and the sampling epilogue."""
-    return L * (6 if splits > 1 else 5) + 2
+    (csrc/decode_chain_tc.cuh): qkv, attention, [combine: split keys on
+    split_attn_kernel], o, FF1, FF2 a layer, then the logits GEMV and the
+    sampling epilogue. The lane-grouped attention merges its own splits."""
+    return L * (6 if splits > 1 and not lane_group else 5) + 2
 
 
 def chain_bwd_launches_per_token(L: int, recompute: bool) -> int:

@@ -113,6 +113,8 @@ def _launch(entry: str, stacked, cfg, kv, R, staged, ids, g, count: int,
     _native.count_launch(entry)
     if cd == torch.bfloat16:
         _native.count_launch(entry + "_tc")
+        if tc["lane_group"]:
+            _native.count_launch(entry + "_grouped")
     return ids_io, onehot
 
 

@@ -12,9 +12,12 @@ which is also what the card checks the kernel against.
 
 fp32 runs the chain of ``csrc/decode_chain.cuh``, the exact on-card
 reference. bf16 runs ``csrc/decode_chain_tc.cuh``: decode attention with
-the keys split across blocks (:func:`decode_key_splits`) and merged in split
-order, and GEMVs that read each weight once for all lanes, from the W^T
-copies ``stack_decode_params`` adds in bf16. Its plain counterpart is
+the keys split across blocks and merged in split order (:func:`decode_route`
+picks the kernel and the splits by shape: lane groups that share each R row
+where there are enough lanes and keys to fill the card, one block a lane
+otherwise), and GEMVs that
+read each weight once for all lanes, from the W^T copies
+``stack_decode_params`` adds in bf16. Its plain counterpart is
 :func:`fused_generate_chunk_plain` with ``splits``, which rounds where the
 split kernel rounds (:func:`decode_attention_plain`).
 
@@ -47,6 +50,13 @@ TECHNIQUES = {"topk": 0, "random": 1, "gumbel": 2}
 MIN_SPLIT_KEYS = 64
 KEY_TILE = 256
 MAX_DECODE_SPLITS = 64
+# the lane-grouped decode attention (grouped_split_attn_kernel; kLaneGroup,
+# kGroupMaxKeys): a block takes LANE_GROUP lanes of one head and one split
+# of at most GROUP_MAX_KEYS keys, and GROUP_BLOCKS_PER_SM of them fit a
+# multiprocessor at d_head 50 (~103-108 KB of shared memory each)
+LANE_GROUP = 8
+GROUP_MAX_KEYS = 512
+GROUP_BLOCKS_PER_SM = 2
 # the bf16 chain's W^T operands (ops/decode_params.stack_decode_params)
 _STACKED_TC = ("qkv_t", "o_t", "ff1_t", "ff2_t", "lg_t")
 
@@ -59,6 +69,36 @@ def decode_key_splits(H: int, B: int, n_keys: int, n_sm: int) -> int:
     fill = (1 if blocks >= 2 * n_sm
             else min(-(-2 * n_sm // blocks), n_keys // MIN_SPLIT_KEYS))
     return max(1, min(max(fill, -(-n_keys // KEY_TILE)), MAX_DECODE_SPLITS))
+
+
+def grouped_key_splits(H: int, B: int, n_keys: int, n_sm: int) -> int:
+    """Key splits of the lane-grouped decode attention: as many (h, lane
+    group, split) blocks as the card holds at once (GROUP_BLOCKS_PER_SM a
+    multiprocessor, so the grid is one wave), at least MIN_SPLIT_KEYS keys a
+    split, and at most GROUP_MAX_KEYS (the split's scores stay in shared
+    memory)."""
+    blocks = H * -(-B // LANE_GROUP)
+    fill = min(GROUP_BLOCKS_PER_SM * n_sm // blocks, n_keys // MIN_SPLIT_KEYS,
+               MAX_DECODE_SPLITS)
+    return max(1, -(-n_keys // GROUP_MAX_KEYS), fill)
+
+
+def decode_route(H: int, B: int, n_keys: int, n_sm: int) -> tuple[int, int]:
+    """(lane group, key splits) of the bf16 decode attention for ``H`` heads,
+    ``B`` lanes and up to ``n_keys`` keys a token on a card of ``n_sm``
+    multiprocessors. Where the keys are split (:func:`decode_key_splits` >
+    1), there are at least LANE_GROUP lanes and the lane-grouped grid
+    (heads x lane groups x :func:`grouped_key_splits`) has a block for each
+    multiprocessor, the lane-grouped kernel (group LANE_GROUP); else
+    ``split_attn_kernel`` (group 0) with :func:`decode_key_splits`. A
+    thinner grouped grid lost on the H100: 20 blocks at B 8, 160 keys."""
+    splits = decode_key_splits(H, B, n_keys, n_sm)
+    if (splits > 1 and B >= LANE_GROUP
+            and n_keys <= GROUP_MAX_KEYS * MAX_DECODE_SPLITS):
+        grouped = grouped_key_splits(H, B, n_keys, n_sm)
+        if H * -(-B // LANE_GROUP) * grouped >= n_sm:
+            return LANE_GROUP, grouped
+    return 0, splits
 
 
 def split_bounds(n_keys: int, splits: int) -> list[tuple[int, int]]:
@@ -77,27 +117,29 @@ def r_heads_major(R: torch.Tensor, n_head: int) -> torch.Tensor:
     return R.view(L, rows, n_head, HD // n_head).permute(0, 2, 1, 3).contiguous()
 
 
-def chain_key_splits(H: int, B: int, n_keys: int, device) -> int:
-    """:func:`decode_key_splits` on ``device``'s card."""
-    return decode_key_splits(H, B, n_keys, torch.cuda.get_device_properties(
+def chain_route(H: int, B: int, n_keys: int, device) -> tuple[int, int]:
+    """:func:`decode_route` on ``device``'s card."""
+    return decode_route(H, B, n_keys, torch.cuda.get_device_properties(
         device).multi_processor_count)
 
 
 def chain_lib() -> ctypes.CDLL:
     """The kernel library, checked against this side of the decode chain's
     contract: the ``GenArgs`` layout, and the bf16 chain's W^T padding, key
-    tile and split cap as ``csrc/decode_chain_tc.cuh`` fixes them
-    (``tg_decode_chain_layout``)."""
+    tile, split cap, lane group and grouped split's key cap as
+    ``csrc/decode_chain_tc.cuh`` fixes them (``tg_decode_chain_layout``)."""
     lib = _native.lib()
     if ctypes.sizeof(GenArgs) != lib.tg_sizeof_gen_args():
         raise RuntimeError("GenArgs layout differs from csrc/decode_chain.cuh")
-    got = (ctypes.c_int * 4)()
+    got = (ctypes.c_int * 6)()
     lib.tg_decode_chain_layout(got)
-    want = (K_ALIGN, N_ALIGN, KEY_TILE, MAX_DECODE_SPLITS)
+    want = (K_ALIGN, N_ALIGN, KEY_TILE, MAX_DECODE_SPLITS, LANE_GROUP,
+            GROUP_MAX_KEYS)
     if tuple(got) != want:
         raise RuntimeError(
             f"bf16 decode chain layout (K align, N align, key tile, max "
-            f"splits): library {tuple(got)}, Python {want}")
+            f"splits, lane group, grouped split keys): library "
+            f"{tuple(got)}, Python {want}")
     return lib
 
 
@@ -105,9 +147,12 @@ def chain_design(dtype) -> str:
     """Which decode chain a dtype runs on the card."""
     if dtype == torch.bfloat16:
         return ("bf16 chain (decode_chain_tc.cuh): split-key decode attention "
-                "with a fixed-order combine, lane-tiled mma.sync GEMVs with "
-                "LayerNorm prologues and residual epilogues, 5 launches a "
-                "layer (6 with split keys) + 2 a token")
+                "(lane groups of 8 sharing each R row through a pipelined "
+                "stage ring, the last split's block merging in split order, "
+                "at >= 8 lanes where that grid fills the card; else a block "
+                "a lane and a fixed-order combine kernel), lane-tiled mma.sync GEMVs with LayerNorm "
+                "prologues and residual epilogues, 5 launches a layer (6 "
+                "with split keys below 8 lanes) + 2 a token")
     return "fp32 chain (decode_chain.cuh), the exact on-card reference"
 
 
@@ -159,11 +204,12 @@ def _layer_keys(kv_l, staged_l, jlo: int, t: int):
 def chain_tc_operands(stacked, R, B: int, H: int, M: int, C: int,
                       device) -> tuple[dict, list]:
     """The bf16 chain's fields of :class:`GenArgs` for a call on ``device``
-    with ``B`` lanes, an ``M``-slot cache and a ``C``-row ring: the key
-    splits, the W^T operands, R with each head's rows contiguous
-    (``R_h [L, H, M+1, dh]``, so a split's position rows are one run of
-    bytes) and the split scratch; and the tensors the fields point into,
-    which the caller keeps until the launch."""
+    with ``B`` lanes, an ``M``-slot cache and a ``C``-row ring: the decode
+    attention's route and key splits (:func:`chain_route`), the W^T
+    operands, R with each head's rows contiguous (``R_h [L, H, M+1, dh]``,
+    so a split's position rows are one run of bytes), the split scratch and,
+    for lane groups, the zeroed arrival counts; and the tensors the fields
+    point into, which the caller keeps until the launch."""
     dh = R.shape[2] // H
     if dh % 2 or dh > 64:
         raise ValueError(f"bf16 decode chain: d_head must be even and <= 64, "
@@ -172,16 +218,22 @@ def chain_tc_operands(stacked, R, B: int, H: int, M: int, C: int,
         if name not in stacked:
             raise ValueError(f"bf16 chain: stacked has no {name} "
                              "(stack_decode_params builds it in bf16)")
-    splits = chain_key_splits(H, B, M + C, device)
+    group, splits = chain_route(H, B, M + C, device)
     HD = R.shape[2]
     R_h = r_heads_major(R, H)
     keep = [R_h]
-    fields = {"splits": splits, "R_h": R_h.data_ptr()}
-    if splits > 1:
+    fields = {"splits": splits, "lane_group": group, "R_h": R_h.data_ptr()}
+    if splits > 1 or group:
         opart = torch.empty((splits, B, HD), dtype=torch.float32, device=device)
         ml = torch.empty((splits, B, H, 2), dtype=torch.float32, device=device)
         keep += [opart, ml]
         fields.update(opart=opart.data_ptr(), ml=ml.data_ptr())
+    if group:
+        # the last block of each (h, lane group) sets its count back to 0
+        arrive = torch.zeros((H, -(-B // group)), dtype=torch.int32,
+                             device=device)
+        keep.append(arrive)
+        fields["arrive"] = arrive.data_ptr()
     fields.update({k: _native.ptr(stacked[k]) for k in _STACKED_TC})
     return fields, keep
 
@@ -204,7 +256,7 @@ class GenArgs(ctypes.Structure):
         [(k, ctypes.c_int) for k in (
             "dtype", "n", "L", "B", "M", "HD", "DI", "H", "V", "pre_lnorm",
             "same_length", "technique", "topk", "exclude_bos", "num_empty",
-            "empty_token", "count", "t0", "C", "splits")]
+            "empty_token", "count", "t0", "C", "splits", "lane_group")]
         + [("scale", ctypes.c_float), ("temperature", ctypes.c_float)]
         + [(k, ctypes.c_void_p) for k in (
             "kv", "R", "q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2",
@@ -212,7 +264,7 @@ class GenArgs(ctypes.Structure):
             "emb_t", "crit_bias", "g", "ids", "er", "tokens", "staged",
             "logits_out", "x", "w_in", "q", "ctx", "attn", "out", "hid", "ff",
             "logits", "onehot", "qkv_t", "o_t", "ff1_t", "ff2_t", "lg_t",
-            "opart", "ml", "R_h")])
+            "opart", "ml", "R_h", "arrive")])
 
 
 _STACKED = {"q_w", "k_w", "v_w", "o_w", "ff1", "fb1", "ff2", "fb2", "rwb",
@@ -304,6 +356,8 @@ def fused_generate_chunk(stacked, cfg, scfg, kv, R, ids, er, g, count,
     _native.count_launch("generate_chunk")
     if cd == torch.bfloat16:
         _native.count_launch("generate_chunk_tc")
+        if tc["lane_group"]:
+            _native.count_launch("generate_chunk_grouped")
     out = (ids_io.view(B, 1), er_io.view(B, 1), tokens, staged)
     return out + (logits_out,) if return_logits else out
 

@@ -22,10 +22,12 @@ same way.
 ``--ablate`` rebuilds the kernel library from an edited copy of ``csrc/``
 (under ``build/profile_generate/``; the sources are not touched) with the
 LayerNorm taken out of the bf16 GEMVs' prologue (the rows are copied and
-multiplied unnormalized), and times K3 and K4 at the op-points above
-against the unedited sources built the same way (CUDA events): the edited
-results are wrong, only the times mean something. What the removal saves
-is an upper bound on what the LayerNorm prologue costs.
+multiplied unnormalized), or parts of the lane-grouped decode attention
+taken out (``ABLATIONS``: the whole kernel, its compute, its loads, its
+merge; they act where K3 takes lane groups, B >= 8), and times K3 and K4 at
+the op-points above against the unedited sources built the same way (CUDA
+events): the edited results are wrong, only the times mean something. What
+a removal saves is an upper bound on what the part costs.
 Weights and cache are seeded random; their values do not change the work
 done.
 """
@@ -44,12 +46,28 @@ from .utils import spans
 _NOT_KERNELS = ("aten::", "Activity Buffer", "Memcpy", "Memset")
 N_TOKENS = 32
 
-# part of the bf16 chain's GEMVs taken out -> (file, text, replacement)
-# edits of the sources (``--ablate``)
+# part of the bf16 chain taken out -> (file, text, replacement) edits of the
+# sources (``--ablate``): the GEMVs' LayerNorm prologue, and parts of the
+# lane-grouped decode attention (grouped_split_attn_kernel, at B >= 8 where
+# the keys are split): the whole kernel, its scoring and P V (loads only),
+# its K / V / R loads (compute only), and the last block's merge
+_TC = "decode_chain_tc.cuh"
 ABLATIONS = {
-    "layernorm prologue": [("decode_chain_tc.cuh",
+    "layernorm prologue": [(_TC,
                             "  if (in.ln_s != nullptr) {\n    const float2* sc2",
                             "  if (false) {\n    const float2* sc2")],
+    "grouped attention": [(_TC,
+                           "  // before the wait: the first stages' big-cache "
+                           "and R rows\n",
+                           "  pdl_wait();\n  pdl_trigger();\n  return;\n")],
+    "grouped compute": [(_TC,
+                         "    if (!active) continue;\n"
+                         "    const GroupRows r = lane_rows(i);",
+                         "    continue;\n    const GroupRows r = lane_rows(i);")],
+    "grouped loads": [(_TC, "  auto issue = [&](int i, int part) {\n",
+                       "  auto issue = [&](int i, int part) {\n    return;\n")],
+    "grouped merge": [(_TC, "  if (*last == 0 || !active) return;\n",
+                       "  return;\n")],
 }
 
 
